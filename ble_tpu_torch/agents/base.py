@@ -1,0 +1,116 @@
+"""Agent interface and registry (the port of ble_tpu/agents/base.py;
+reference agents/agent.py:33-162, agents/agent_registry.py:40-75).
+
+Two interfaces:
+  - the functional one every policy implements, over a batch:
+    `init(num_envs, generator) -> state` and
+    `policy(state, observations (E, 1099), generator) -> (state, actions
+    (E,))`, with a torch.Generator for any random draw. This is what the
+    batched evaluator steps.
+  - the stateful `Agent`, the reference's begin_episode/step/end_episode
+    API for one env, for host-side episode loops such as the gym env.
+"""
+
+import abc
+import enum
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+class AgentMode(enum.Enum):
+  TRAIN = 'train'
+  EVAL = 'eval'
+
+
+class Agent(abc.ABC):
+  """Stateful agent API (reference agents/agent.py:33-146)."""
+
+  def __init__(self, num_actions: int, observation_shape: Sequence[int]):
+    self._num_actions = num_actions
+    self._observation_shape = tuple(observation_shape)
+    self._mode = AgentMode.TRAIN
+
+  def get_name(self) -> str:
+    return type(self).__name__
+
+  @abc.abstractmethod
+  def begin_episode(self, observation) -> int:
+    ...
+
+  @abc.abstractmethod
+  def step(self, reward: float, observation) -> int:
+    ...
+
+  @abc.abstractmethod
+  def end_episode(self, reward: float, terminal: bool = True) -> None:
+    ...
+
+  def set_mode(self, mode: AgentMode) -> None:
+    self._mode = mode
+
+  def save_checkpoint(self, checkpoint_dir: str, iteration: int) -> None:
+    pass
+
+  def load_checkpoint(self, checkpoint_dir: str, iteration: int) -> None:
+    pass
+
+  def reload_latest_checkpoint(self, checkpoint_dir: str) -> int:
+    return -1
+
+
+_REGISTRY: Dict[str, Callable[..., Agent]] = {}
+
+
+def register(name: str):
+  def deco(ctor):
+    _REGISTRY[name] = ctor
+    return ctor
+  return deco
+
+
+def available_agents():
+  return sorted(_REGISTRY)
+
+
+def create_agent(name: str, num_actions: int,
+                 observation_shape: Sequence[int], **kwargs) -> Agent:
+  if name not in _REGISTRY:
+    raise ValueError(
+        f'Unknown agent {name!r}; available: {available_agents()}')
+  return _REGISTRY[name](num_actions=num_actions,
+                         observation_shape=observation_shape, **kwargs)
+
+
+class FunctionalAgent(Agent):
+  """Adapts a batched functional policy to the stateful Agent API: one
+  observation is a batch of one env."""
+
+  def __init__(self, num_actions: int, observation_shape: Sequence[int],
+               init_fn: Callable[[int, torch.Generator], Any],
+               policy_fn: Callable[[Any, torch.Tensor, torch.Generator],
+                                   Tuple[Any, torch.Tensor]],
+               seed: Optional[int] = None):
+    super().__init__(num_actions, observation_shape)
+    self._init_fn = init_fn
+    self._policy_fn = policy_fn
+    self._generator = torch.Generator().manual_seed(0 if seed is None
+                                                    else seed)
+    self._state = None
+
+  def begin_episode(self, observation) -> int:
+    self._state = self._init_fn(1, self._generator)
+    return self._act(observation)
+
+  def step(self, reward: float, observation) -> int:
+    del reward
+    return self._act(observation)
+
+  def end_episode(self, reward: float, terminal: bool = True) -> None:
+    pass
+
+  def _act(self, observation) -> int:
+    obs = torch.as_tensor(np.asarray(observation, np.float32))[None]
+    self._state, action = self._policy_fn(self._state, obs, self._generator)
+    return int(action[0])

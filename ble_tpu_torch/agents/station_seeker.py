@@ -6,6 +6,7 @@ import math
 
 import torch
 
+from ble_tpu_torch.agents import base
 from ble_tpu_torch.env import features as features_lib
 from ble_tpu_torch.env import safety
 from ble_tpu_torch.utils import transforms
@@ -66,3 +67,14 @@ def pick_action(observation):
   stay = torch.full_like(best, safety.STAY)
   return torch.where(best < _MIDPOINT, up,
                      torch.where(best > _MIDPOINT, down, stay)).to(torch.int32)
+
+
+@base.register('station_seeker')
+class StationSeekerAgent(base.FunctionalAgent):
+
+  def __init__(self, num_actions, observation_shape, seed=None):
+    super().__init__(num_actions, observation_shape,
+                     init_fn=lambda n, generator: (),
+                     policy_fn=lambda state, obs, generator: (
+                         state, pick_action(obs)),
+                     seed=seed)

@@ -70,3 +70,18 @@ def to_dict(obj) -> dict:
     else:
       out[field.name] = value
   return out
+
+
+def decoder_params_from_flax(params) -> dict:
+  """The VAE decoder's state dict (generative/vae.Decoder) from the JAX
+  package's flax tree of numpy arrays, {'params': {'Dense_i': {'kernel',
+  'bias'}}}; each (in, out) kernel becomes an (out, in) weight."""
+  dense = params['params']
+  out = {}
+  for i in range(len(dense)):
+    layer = dense[f'Dense_{i}']
+    out[f'layers.{i}.weight'] = torch.from_numpy(
+        np.ascontiguousarray(np.asarray(layer['kernel'], np.float32).T))
+    out[f'layers.{i}.bias'] = torch.from_numpy(
+        np.array(layer['bias'], np.float32))
+  return out

@@ -1,0 +1,299 @@
+// What the three GP kernels share: the GP's constants, and for
+// csrc/gp_window.cu (B2, observe + query per step) and csrc/gp_observe.cu
+// (B3/B4, observe only) the load and store of one env's state to and from
+// shared memory and the observe on it. csrc/gp_query.cu (B5) takes the
+// constants.
+//
+// The observe is the TPU kernels' _observe_core + _finish
+// (ble_tpu/ops/pallas_gp_window.py, ble_tpu/ops/pallas_gp_observe.py): two
+// stale expiries by first index, ring eviction, bordered insert with the
+// clamped Gram-chain pivots read off the 4x4 S = U^T kinv U
+// (d_min = 1/(s_f^2 + s_n^2), schur >= s_n^2), the 8 rank-1 terms applied as
+// kinv += (W c) W^T, then alpha = kinv' (errors * active). With `enabled`
+// false the state is left exactly as it was.
+//
+// Every function here expects a block of kThreads = 256 threads, each of
+// which calls it.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#define F(x) ((float)(x))
+
+namespace ble_gp {
+
+constexpr int kCap = 128;
+constexpr int kThreads = 256;
+// Rows of kinv padded to 129 floats: row and column walks are both free of
+// bank conflicts.
+constexpr int kKinvStride = kCap + 1;
+
+constexpr double kSigmaF2 = 3.6 * 3.6;
+constexpr double kSigmaN2 = 0.05;
+constexpr double kTimeHorizonS = 6.0 * 3600.0;
+constexpr double kLsX = 357000.0, kLsY = 357000.0, kLsP = 326.0,
+                 kLsT = 34560.0;
+
+// Scratch the observe needs, in floats: U (CAP, 4) | M (CAP, 4) | W (CAP, 8).
+constexpr int kObserveScratchFloats = kCap * 16;
+// Small area: S (16) | c (8) | coefficients a[q][j] (16) | stale words (4).
+constexpr int kSmallFloats = 64;
+constexpr int kSmallS = 0, kSmallC = 16, kSmallA = 24, kSmallWords = 40;
+
+// The state in shared memory; kinv has kCap rows of kKinvStride floats.
+struct State {
+  float* kinv;
+  float* loc;    // (CAP, 4)
+  float* err;    // (CAP, 2)
+  float* act;    // (CAP,) 0/1
+  float* alpha;  // (CAP, 2)
+};
+
+// Env e's state from device memory into shared memory. The caller
+// synchronises before using it.
+__device__ __forceinline__ void load_state(
+    const State& s, int e, const float* __restrict__ loc_in,
+    const float* __restrict__ err_in, const float* __restrict__ act_in,
+    const float* __restrict__ kinv_in, const float* __restrict__ alpha_in) {
+  const int tid = threadIdx.x;
+  const float4* src =
+      reinterpret_cast<const float4*>(kinv_in + (size_t)e * kCap * kCap);
+  for (int i = tid; i < kCap * kCap / 4; i += kThreads) {
+    float4 q = src[i];
+    int r = (i * 4) / kCap, c = (i * 4) % kCap;
+    float* dst = s.kinv + r * kKinvStride + c;
+    dst[0] = q.x; dst[1] = q.y; dst[2] = q.z; dst[3] = q.w;
+  }
+  for (int i = tid; i < kCap * 4; i += kThreads)
+    s.loc[i] = loc_in[(size_t)e * kCap * 4 + i];
+  for (int i = tid; i < kCap * 2; i += kThreads) {
+    s.err[i] = err_in[(size_t)e * kCap * 2 + i];
+    s.alpha[i] = alpha_in[(size_t)e * kCap * 2 + i];
+  }
+  if (tid < kCap) s.act[tid] = act_in[(size_t)e * kCap + tid];
+}
+
+// Env e's state from shared memory back to device memory. The caller
+// synchronises before it.
+__device__ __forceinline__ void store_state(
+    const State& s, int e, int count, float* __restrict__ loc_out,
+    float* __restrict__ err_out, float* __restrict__ act_out,
+    float* __restrict__ kinv_out, float* __restrict__ alpha_out,
+    int* __restrict__ cnt_out) {
+  const int tid = threadIdx.x;
+  float4* dst = reinterpret_cast<float4*>(kinv_out + (size_t)e * kCap * kCap);
+  for (int i = tid; i < kCap * kCap / 4; i += kThreads) {
+    int r = (i * 4) / kCap, c = (i * 4) % kCap;
+    const float* src = s.kinv + r * kKinvStride + c;
+    dst[i] = make_float4(src[0], src[1], src[2], src[3]);
+  }
+  for (int i = tid; i < kCap * 4; i += kThreads)
+    loc_out[(size_t)e * kCap * 4 + i] = s.loc[i];
+  for (int i = tid; i < kCap * 2; i += kThreads) {
+    err_out[(size_t)e * kCap * 2 + i] = s.err[i];
+    alpha_out[(size_t)e * kCap * 2 + i] = s.alpha[i];
+  }
+  if (tid < kCap) act_out[(size_t)e * kCap + tid] = s.act[tid];
+  if (tid == 0) cnt_out[e] = count;
+}
+
+// One observation [x, y, p, t, eu, ev] into the state; `count` is the
+// number of observations ever written and advances when `enabled`.
+// `scratch` holds kObserveScratchFloats and `small` kSmallFloats floats.
+// Starts with the state synchronised; ends with alpha written but not
+// synchronised, so the caller synchronises before reading alpha.
+__device__ __forceinline__ void observe_step(
+    const State& s, float* scratch, float* small, int& count, float x,
+    float y, float p, float t, float eu, float ev, bool enabled) {
+  float* kinv = s.kinv;
+  float* loc = s.loc;
+  float* err = s.err;
+  float* act = s.act;
+  float* alpha = s.alpha;
+  float* u_mat = scratch;               // (CAP, 4)
+  float* m_mat = scratch + kCap * 4;    // (CAP, 4)
+  float* w_mat = scratch + kCap * 8;    // (CAP, 8)
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float sf2 = F(kSigmaF2);
+  const float sn2 = F(kSigmaN2);
+
+  // Stale slots: active and older than the 6-hour window.
+  if (warp < kCap / 32) {
+    int i = tid;
+    bool stale = act[i] > 0.5f && (t - loc[i * 4 + 3]) >= F(kTimeHorizonS);
+    unsigned word = __ballot_sync(0xffffffffu, stale);
+    if (lane == 0) reinterpret_cast<unsigned*>(small)[kSmallWords + warp] =
+        word;
+  }
+  __syncthreads();
+  int first1 = kCap, first2 = kCap;
+  {
+    const unsigned* words =
+        reinterpret_cast<const unsigned*>(small) + kSmallWords;
+    for (int w = 0; w < kCap / 32; ++w) {
+      unsigned word = words[w];
+      while (word && first2 == kCap) {
+        int bit = __ffs(word) - 1;
+        word &= word - 1;
+        if (first1 == kCap) first1 = w * 32 + bit;
+        else first2 = w * 32 + bit;
+      }
+    }
+  }
+  const int slot = count % kCap;
+  // The ring slot is evicted when it is still active after the expiries.
+  const bool slot_active =
+      act[slot] > 0.5f && slot != first1 && slot != first2;
+  const bool removing[3] = {first1 < kCap, first2 < kCap, slot_active};
+
+  float act_final_i = 0.0f;
+  if (tid < kCap) {
+    const int i = tid;
+    float e1 = i == first1 ? 1.0f : 0.0f;
+    float e2 = i == first2 ? 1.0f : 0.0f;
+    float slot_e = i == slot ? 1.0f : 0.0f;
+    float eo = (slot_active && i == slot) ? 1.0f : 0.0f;
+    float act_after_rm = (e1 > 0.5f || e2 > 0.5f) ? 0.0f : act[i];
+    float act_pre = eo > 0.5f ? 0.0f : act_after_rm;
+    act_final_i = fmaxf(act_pre, slot_e);
+    float dx = (x - loc[i * 4 + 0]) / F(kLsX);
+    float dy = (y - loc[i * 4 + 1]) / F(kLsY);
+    float dp = (p - loc[i * 4 + 2]) / F(kLsP);
+    float dt = (t - loc[i * 4 + 3]) / F(kLsT);
+    float d = sqrtf(dx * dx + dy * dy + dp * dp + dt * dt + F(1e-12));
+    float v = (sf2 * expf(-d)) * act_pre;
+    u_mat[i * 4 + 0] = e1;
+    u_mat[i * 4 + 1] = e2;
+    u_mat[i * 4 + 2] = eo;
+    u_mat[i * 4 + 3] = v;
+  }
+  __syncthreads();
+
+  // M = kinv U: thread -> (row tid % CAP, columns 2 * (tid / CAP) + {0, 1}).
+  {
+    const int i = tid % kCap, j0 = 2 * (tid / kCap);
+    const float* row = kinv + i * kKinvStride;
+    float m0 = 0.0f, m1 = 0.0f;
+    for (int kk = 0; kk < kCap; ++kk) {
+      float a = row[kk];
+      m0 += a * u_mat[kk * 4 + j0];
+      m1 += a * u_mat[kk * 4 + j0 + 1];
+    }
+    m_mat[i * 4 + j0] = m0;
+    m_mat[i * 4 + j0 + 1] = m1;
+  }
+  __syncthreads();
+
+  // S = U^T M: warp w computes entries 2w and 2w + 1 of the 4x4.
+  for (int q = 0; q < 2; ++q) {
+    const int idx = 2 * warp + q, a = idx / 4, b = idx % 4;
+    float acc = 0.0f;
+    for (int i = lane; i < kCap; i += 32)
+      acc += u_mat[i * 4 + a] * m_mat[i * 4 + b];
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_down_sync(0xffffffffu, acc, off);
+    if (lane == 0) small[kSmallS + idx] = acc;
+  }
+  __syncthreads();
+
+  // Gram-chain pivots on one thread (pallas_gp_window._observe_core).
+  if (tid == 0) {
+    const float* sm = small + kSmallS;
+    const float d0 = F(kSigmaF2 + kSigmaN2);
+    const float d_min = F(1.0 / (kSigmaF2 + kSigmaN2));
+    float tc[4][4];
+    float safe[3];
+    for (int j = 0; j < 3; ++j) {
+      float dj = sm[j * 4 + j];
+      for (int q = 0; q < j; ++q) {
+        float acc = 0.0f;
+        for (int r = 0; r < q; ++r) acc = acc + (tc[r][q] / safe[r]) * tc[r][j];
+        tc[q][j] = sm[j * 4 + q] - acc;
+        dj = dj - tc[q][j] * tc[q][j] / safe[q];
+      }
+      safe[j] = fabsf(dj) > d_min ? dj : (removing[j] ? d_min : 1.0f);
+    }
+    for (int q = 0; q < 3; ++q) {
+      float acc = 0.0f;
+      for (int r = 0; r < q; ++r) acc = acc + (tc[r][q] / safe[r]) * tc[r][3];
+      tc[q][3] = sm[3 * 4 + q] - acc;
+    }
+    float dv_acc = 0.0f;
+    for (int q = 0; q < 3; ++q) dv_acc = dv_acc + tc[q][3] * tc[q][3] / safe[q];
+    const float d_v = sm[3 * 4 + 3] - dv_acc;
+    const float schur = fmaxf(d0 - d_v, sn2);
+    float* c = small + kSmallC;
+    c[0] = -1.0f / safe[0];
+    c[1] = -1.0f / safe[1];
+    c[2] = -1.0f / safe[2];
+    c[3] = 1.0f;
+    c[4] = 1.0f;
+    c[5] = 1.0f;
+    c[6] = 1.0f / schur;
+    c[7] = -1.0f;
+    float* a = small + kSmallA;  // a[q * 4 + j] = tc[q][j] / safe[q].
+    for (int j = 1; j < 4; ++j)
+      for (int q = 0; q < j; ++q) a[q * 4 + j] = tc[q][j] / safe[q];
+  }
+  __syncthreads();
+
+  // Update vectors in real space: W = [w0 w1 w2 e1 e2 eo yv slot_e].
+  if (tid < kCap) {
+    const int i = tid;
+    const float* a = small + kSmallA;
+    float w[4];
+    for (int j = 0; j < 4; ++j) {
+      float wj = m_mat[i * 4 + j];
+      for (int q = 0; q < j; ++q) wj = wj - a[q * 4 + j] * w[q];
+      w[j] = wj;
+    }
+    float slot_e = i == slot ? 1.0f : 0.0f;
+    float* wr = w_mat + i * 8;
+    wr[0] = w[0];
+    wr[1] = w[1];
+    wr[2] = w[2];
+    wr[3] = u_mat[i * 4 + 0];
+    wr[4] = u_mat[i * 4 + 1];
+    wr[5] = u_mat[i * 4 + 2];
+    wr[6] = w[3] - slot_e;
+    wr[7] = slot_e;
+  }
+  __syncthreads();
+
+  if (enabled) {
+    // Rank-8 update kinv += (W c) W^T: column j = tid % CAP, rows of one
+    // parity, W[j, :] kept in registers.
+    const int j = tid % kCap;
+    const float* c = small + kSmallC;
+    float wj[8];
+    for (int r = 0; r < 8; ++r) wj[r] = w_mat[j * 8 + r];
+    for (int i = tid / kCap; i < kCap; i += kThreads / kCap) {
+      const float* wi = w_mat + i * 8;
+      float acc = 0.0f;
+      for (int r = 0; r < 8; ++r) acc += (wi[r] * c[r]) * wj[r];
+      kinv[i * kKinvStride + j] += acc;
+    }
+    if (tid < kCap) act[tid] = act_final_i;
+    if (tid < 4) loc[slot * 4 + tid] = tid == 0 ? x : tid == 1 ? y
+                                     : tid == 2 ? p : t;
+    if (tid == 4) err[slot * 2 + 0] = eu;
+    if (tid == 5) err[slot * 2 + 1] = ev;
+    ++count;
+  }
+  __syncthreads();
+
+  if (enabled) {
+    // alpha = kinv' (errors * active): thread -> (row tid % CAP, comp).
+    const int i = tid % kCap, comp = tid / kCap;
+    const float* row = kinv + i * kKinvStride;
+    float acc = 0.0f;
+    for (int kk = 0; kk < kCap; ++kk)
+      acc += row[kk] * (err[kk * 2 + comp] * act[kk]);
+    alpha[i * 2 + comp] = acc;
+  }
+}
+
+}  // namespace ble_gp

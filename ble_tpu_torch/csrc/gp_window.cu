@@ -13,9 +13,11 @@
 // in dynamic shared memory (rows padded to 129 floats, so row and column
 // walks are both free of bank conflicts) for all K steps, beside the small
 // per-slot buffers; it is read from and written to device memory once per
-// window. Stale-slot search is a warp ballot. M = kinv U and S = U^T M are
-// block reductions; the scalar pivot chain runs on one thread with the same
-// clamps as the JAX package (d_min = 1/(s_f^2 + s_n^2), schur >= s_n^2).
+// window. The observe phase is gp_core.cuh's, shared with the
+// observe-only kernel csrc/gp_observe.cu: stale-slot search by warp ballot,
+// M = kinv U and S = U^T M as block reductions, the scalar pivot chain on
+// one thread with the same clamps as the JAX package
+// (d_min = 1/(s_f^2 + s_n^2), schur >= s_n^2).
 // The query builds k* 64 levels at a time in shared memory and forms
 // kinv k* with an 8x4 register tile per thread in full float32 on the CUDA
 // cores: no tensor cores, because the variance cancels operands of ~13 down
@@ -34,25 +36,19 @@
 
 #include <cuda_runtime.h>
 
-#define F(x) ((float)(x))
+#include "gp_core.cuh"
 
 namespace {
 
-constexpr int kCap = 128;
+using namespace ble_gp;
+
 constexpr int kLevels = 181;
-constexpr int kThreads = 256;
-constexpr int kKinvStride = kCap + 1;
 constexpr int kChunk = 64;
 constexpr int kNumChunks = (kLevels + kChunk - 1) / kChunk;
 constexpr int kRowGroups = 16;  // vv tile: 16 row groups x 16 column groups.
 constexpr int kTileRows = kCap / kRowGroups;  // 8
 constexpr int kTileCols = kChunk / 16;  // 4
 
-constexpr double kSigmaF2 = 3.6 * 3.6;
-constexpr double kSigmaN2 = 0.05;
-constexpr double kTimeHorizonS = 6.0 * 3600.0;
-constexpr double kLsX = 357000.0, kLsY = 357000.0, kLsP = 326.0,
-                 kLsT = 34560.0;
 constexpr double kPresMin = 5000.0, kPresStep = (14000.0 - 5000.0) / 180.0;
 
 // Shared memory layout, in floats.
@@ -65,11 +61,9 @@ constexpr int kOffQc = kOffAlpha + kCap * 2;
 constexpr int kOffScratch = kOffQc + kCap;  // k* chunk, or U | M | W.
 constexpr int kOffRed = kOffScratch + kCap * kChunk;
 constexpr int kOffSmall = kOffRed + kRowGroups * kChunk;
-constexpr int kSmallFloats = 64;
 constexpr int kSmemFloats = kOffSmall + kSmallFloats;
 constexpr int kSmemBytes = kSmemFloats * 4;
-// Small area: S (16) | c (8) | coefficients a[q][j] (16) | stale words (4).
-constexpr int kSmallS = 0, kSmallC = 16, kSmallA = 24, kSmallWords = 40;
+static_assert(kCap * kChunk >= kObserveScratchFloats, "scratch too small");
 
 __global__ void __launch_bounds__(kThreads, 2)
 gp_window_kernel(const float* __restrict__ obs_seq,
@@ -84,44 +78,23 @@ gp_window_kernel(const float* __restrict__ obs_seq,
                  int* __restrict__ cnt_out, float* __restrict__ level,
                  int n, int k_steps) {
   extern __shared__ float smem[];
-  float* kinv = smem + kOffKinv;
-  float* loc = smem + kOffLoc;
-  float* err = smem + kOffErr;
-  float* act = smem + kOffAct;
-  float* alpha = smem + kOffAlpha;
+  const State s{smem + kOffKinv, smem + kOffLoc, smem + kOffErr,
+                smem + kOffAct, smem + kOffAlpha};
+  const float* loc = s.loc;
+  const float* act = s.act;
+  const float* alpha = s.alpha;
+  const float* kinv = s.kinv;
   float* qc = smem + kOffQc;
   float* scratch = smem + kOffScratch;
   float* red = smem + kOffRed;
   float* small = smem + kOffSmall;
-  float* u_mat = scratch;               // (CAP, 4)
-  float* m_mat = scratch + kCap * 4;    // (CAP, 4)
-  float* w_mat = scratch + kCap * 8;    // (CAP, 8)
 
   const int e = blockIdx.x;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const float sf2 = F(kSigmaF2);
-  const float sn2 = F(kSigmaN2);
 
   // --- Load the GP state once per window. ---
-  {
-    const float4* src =
-        reinterpret_cast<const float4*>(kinv_in + (size_t)e * kCap * kCap);
-    for (int i = tid; i < kCap * kCap / 4; i += kThreads) {
-      float4 q = src[i];
-      int r = (i * 4) / kCap, c = (i * 4) % kCap;
-      float* dst = kinv + r * kKinvStride + c;
-      dst[0] = q.x; dst[1] = q.y; dst[2] = q.z; dst[3] = q.w;
-    }
-    for (int i = tid; i < kCap * 4; i += kThreads)
-      loc[i] = loc_in[(size_t)e * kCap * 4 + i];
-    for (int i = tid; i < kCap * 2; i += kThreads) {
-      err[i] = err_in[(size_t)e * kCap * 2 + i];
-      alpha[i] = alpha_in[(size_t)e * kCap * 2 + i];
-    }
-    if (tid < kCap) act[tid] = act_in[(size_t)e * kCap + tid];
-  }
+  load_state(s, e, loc_in, err_in, act_in, kinv_in, alpha_in);
   int count = cnt_in[e];
   __syncthreads();
 
@@ -131,181 +104,7 @@ gp_window_kernel(const float* __restrict__ obs_seq,
     const float eu = ob[4], ev = ob[5];
     const bool enabled = ob[6] > 0.5f;
 
-    // ---------------- observe ----------------
-    // Stale slots: active and older than the 6-hour window.
-    if (warp < kCap / 32) {
-      int i = tid;
-      bool stale = act[i] > 0.5f && (t - loc[i * 4 + 3]) >= F(kTimeHorizonS);
-      unsigned word = __ballot_sync(0xffffffffu, stale);
-      if (lane == 0) reinterpret_cast<unsigned*>(small)[kSmallWords + warp] =
-          word;
-    }
-    __syncthreads();
-    int first1 = kCap, first2 = kCap;
-    {
-      const unsigned* words =
-          reinterpret_cast<const unsigned*>(small) + kSmallWords;
-      for (int w = 0; w < kCap / 32; ++w) {
-        unsigned word = words[w];
-        while (word && first2 == kCap) {
-          int bit = __ffs(word) - 1;
-          word &= word - 1;
-          if (first1 == kCap) first1 = w * 32 + bit;
-          else first2 = w * 32 + bit;
-        }
-      }
-    }
-    const int slot = count % kCap;
-    // The ring slot is evicted when it is still active after the expiries.
-    const bool slot_active =
-        act[slot] > 0.5f && slot != first1 && slot != first2;
-    const bool removing[3] = {first1 < kCap, first2 < kCap, slot_active};
-
-    float act_final_i = 0.0f;
-    if (tid < kCap) {
-      const int i = tid;
-      float e1 = i == first1 ? 1.0f : 0.0f;
-      float e2 = i == first2 ? 1.0f : 0.0f;
-      float slot_e = i == slot ? 1.0f : 0.0f;
-      float eo = (slot_active && i == slot) ? 1.0f : 0.0f;
-      float act_after_rm = (e1 > 0.5f || e2 > 0.5f) ? 0.0f : act[i];
-      float act_pre = eo > 0.5f ? 0.0f : act_after_rm;
-      act_final_i = fmaxf(act_pre, slot_e);
-      float dx = (x - loc[i * 4 + 0]) / F(kLsX);
-      float dy = (y - loc[i * 4 + 1]) / F(kLsY);
-      float dp = (p - loc[i * 4 + 2]) / F(kLsP);
-      float dt = (t - loc[i * 4 + 3]) / F(kLsT);
-      float d = sqrtf(dx * dx + dy * dy + dp * dp + dt * dt + F(1e-12));
-      float v = (sf2 * expf(-d)) * act_pre;
-      u_mat[i * 4 + 0] = e1;
-      u_mat[i * 4 + 1] = e2;
-      u_mat[i * 4 + 2] = eo;
-      u_mat[i * 4 + 3] = v;
-    }
-    __syncthreads();
-
-    // M = kinv U: thread -> (row tid % CAP, columns 2 * (tid / CAP) + {0, 1}).
-    {
-      const int i = tid % kCap, j0 = 2 * (tid / kCap);
-      const float* row = kinv + i * kKinvStride;
-      float m0 = 0.0f, m1 = 0.0f;
-      for (int kk = 0; kk < kCap; ++kk) {
-        float a = row[kk];
-        m0 += a * u_mat[kk * 4 + j0];
-        m1 += a * u_mat[kk * 4 + j0 + 1];
-      }
-      m_mat[i * 4 + j0] = m0;
-      m_mat[i * 4 + j0 + 1] = m1;
-    }
-    __syncthreads();
-
-    // S = U^T M: warp w computes entries 2w and 2w + 1 of the 4x4.
-    for (int s = 0; s < 2; ++s) {
-      const int idx = 2 * warp + s, a = idx / 4, b = idx % 4;
-      float acc = 0.0f;
-      for (int i = lane; i < kCap; i += 32)
-        acc += u_mat[i * 4 + a] * m_mat[i * 4 + b];
-      for (int off = 16; off > 0; off >>= 1)
-        acc += __shfl_down_sync(0xffffffffu, acc, off);
-      if (lane == 0) small[kSmallS + idx] = acc;
-    }
-    __syncthreads();
-
-    // Gram-chain pivots on one thread (pallas_gp_window._observe_core).
-    if (tid == 0) {
-      const float* s = small + kSmallS;
-      const float d0 = F(kSigmaF2 + kSigmaN2);
-      const float d_min = F(1.0 / (kSigmaF2 + kSigmaN2));
-      float tc[4][4];
-      float safe[3];
-      for (int j = 0; j < 3; ++j) {
-        float dj = s[j * 4 + j];
-        for (int q = 0; q < j; ++q) {
-          float acc = 0.0f;
-          for (int r = 0; r < q; ++r) acc = acc + (tc[r][q] / safe[r]) * tc[r][j];
-          tc[q][j] = s[j * 4 + q] - acc;
-          dj = dj - tc[q][j] * tc[q][j] / safe[q];
-        }
-        safe[j] = fabsf(dj) > d_min ? dj : (removing[j] ? d_min : 1.0f);
-      }
-      for (int q = 0; q < 3; ++q) {
-        float acc = 0.0f;
-        for (int r = 0; r < q; ++r) acc = acc + (tc[r][q] / safe[r]) * tc[r][3];
-        tc[q][3] = s[3 * 4 + q] - acc;
-      }
-      float dv_acc = 0.0f;
-      for (int q = 0; q < 3; ++q) dv_acc = dv_acc + tc[q][3] * tc[q][3] / safe[q];
-      const float d_v = s[3 * 4 + 3] - dv_acc;
-      const float schur = fmaxf(d0 - d_v, sn2);
-      float* c = small + kSmallC;
-      c[0] = -1.0f / safe[0];
-      c[1] = -1.0f / safe[1];
-      c[2] = -1.0f / safe[2];
-      c[3] = 1.0f;
-      c[4] = 1.0f;
-      c[5] = 1.0f;
-      c[6] = 1.0f / schur;
-      c[7] = -1.0f;
-      float* a = small + kSmallA;  // a[q * 4 + j] = tc[q][j] / safe[q].
-      for (int j = 1; j < 4; ++j)
-        for (int q = 0; q < j; ++q) a[q * 4 + j] = tc[q][j] / safe[q];
-    }
-    __syncthreads();
-
-    // Update vectors in real space: W = [w0 w1 w2 e1 e2 eo yv slot_e].
-    if (tid < kCap) {
-      const int i = tid;
-      const float* a = small + kSmallA;
-      float w[4];
-      for (int j = 0; j < 4; ++j) {
-        float wj = m_mat[i * 4 + j];
-        for (int q = 0; q < j; ++q) wj = wj - a[q * 4 + j] * w[q];
-        w[j] = wj;
-      }
-      float slot_e = i == slot ? 1.0f : 0.0f;
-      float* wr = w_mat + i * 8;
-      wr[0] = w[0];
-      wr[1] = w[1];
-      wr[2] = w[2];
-      wr[3] = u_mat[i * 4 + 0];
-      wr[4] = u_mat[i * 4 + 1];
-      wr[5] = u_mat[i * 4 + 2];
-      wr[6] = w[3] - slot_e;
-      wr[7] = slot_e;
-    }
-    __syncthreads();
-
-    if (enabled) {
-      // Rank-8 update kinv += (W c) W^T: column j = tid % CAP, rows of one
-      // parity, W[j, :] kept in registers.
-      const int j = tid % kCap;
-      const float* c = small + kSmallC;
-      float wj[8];
-      for (int r = 0; r < 8; ++r) wj[r] = w_mat[j * 8 + r];
-      for (int i = tid / kCap; i < kCap; i += kThreads / kCap) {
-        const float* wi = w_mat + i * 8;
-        float acc = 0.0f;
-        for (int r = 0; r < 8; ++r) acc += (wi[r] * c[r]) * wj[r];
-        kinv[i * kKinvStride + j] += acc;
-      }
-      if (tid < kCap) act[tid] = act_final_i;
-      if (tid < 4) loc[slot * 4 + tid] = tid == 0 ? x : tid == 1 ? y
-                                       : tid == 2 ? p : t;
-      if (tid == 4) err[slot * 2 + 0] = eu;
-      if (tid == 5) err[slot * 2 + 1] = ev;
-      ++count;
-    }
-    __syncthreads();
-
-    if (enabled) {
-      // alpha = kinv' (errors * active): thread -> (row tid % CAP, comp).
-      const int i = tid % kCap, comp = tid / kCap;
-      const float* row = kinv + i * kKinvStride;
-      float acc = 0.0f;
-      for (int kk = 0; kk < kCap; ++kk)
-        acc += row[kk] * (err[kk * 2 + comp] * act[kk]);
-      alpha[i * 2 + comp] = acc;
-    }
+    observe_step(s, scratch, small, count, x, y, p, t, eu, ev, enabled);
     // ---------------- query ----------------
     if (tid < kCap) {
       const int i = tid;
@@ -392,22 +191,8 @@ gp_window_kernel(const float* __restrict__ obs_seq,
   }
 
   // --- Write the GP state back. ---
-  {
-    float4* dst = reinterpret_cast<float4*>(kinv_out + (size_t)e * kCap * kCap);
-    for (int i = tid; i < kCap * kCap / 4; i += kThreads) {
-      int r = (i * 4) / kCap, c = (i * 4) % kCap;
-      const float* s = kinv + r * kKinvStride + c;
-      dst[i] = make_float4(s[0], s[1], s[2], s[3]);
-    }
-    for (int i = tid; i < kCap * 4; i += kThreads)
-      loc_out[(size_t)e * kCap * 4 + i] = loc[i];
-    for (int i = tid; i < kCap * 2; i += kThreads) {
-      err_out[(size_t)e * kCap * 2 + i] = err[i];
-      alpha_out[(size_t)e * kCap * 2 + i] = alpha[i];
-    }
-    if (tid < kCap) act_out[(size_t)e * kCap + tid] = act[tid];
-    if (tid == 0) cnt_out[e] = count;
-  }
+  store_state(s, e, count, loc_out, err_out, act_out, kinv_out, alpha_out,
+              cnt_out);
 }
 
 }  // namespace

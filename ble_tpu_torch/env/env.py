@@ -2,11 +2,17 @@
 port of ble_tpu/env/env.py; reference env/balloon_env.py and
 balloon_arena.py).
 
-Every EnvState leaf leads with the env axis. `step_batched` mirrors
-ble_tpu's `_post_physics_batched`: one effective_column per env serves
-both the balloon-pressure wind lookup and the 181-level feature forecast,
-and the GP observe + query runs as one `ops.gp_window.step`. Kernel or
-plain version is chosen by the tensors' device.
+Every EnvState leaf leads with the env axis. Two step routes, as in
+ble_tpu:
+- `step` is ble_tpu's single-env `step` (`_post_physics`) over a batch:
+  ground truth and forecast looked up on their own, the GP observe
+  (wind_gp.observe) and the 181-level column query inside the features
+  (wind_gp.query_column) as separate kernels. The gym env runs it.
+- `step_batched` mirrors ble_tpu's `_post_physics_batched`: one
+  effective_column per env serves both the balloon-pressure wind lookup and
+  the 181-level feature forecast, and the GP observe + query runs as one
+  `ops.gp_window.step`. The eval harness runs it.
+Kernel or plain version is chosen by the tensors' device.
 """
 
 import dataclasses
@@ -23,6 +29,7 @@ from ble_tpu_torch.env import solar
 from ble_tpu_torch.env import stable_init
 from ble_tpu_torch.env import wind_field as wind_field_lib
 from ble_tpu_torch.env import wind_gp
+from ble_tpu_torch.generative import vae
 from ble_tpu_torch.ops import gp_window
 from ble_tpu_torch.ops import physics
 from ble_tpu_torch.utils import constants
@@ -34,6 +41,9 @@ OBSERVATION_DIM = features_lib.NUM_FEATURES
 # Agent steps between re-centres of the field slab (exact below ~34.7 m/s);
 # divides wind_gp.REFRESH_PERIOD, so every GP chunk holds whole slab chunks.
 FIELD_CACHE_EVERY = 8
+# A seed's forecast latent comes from a generator seeded with seed + this,
+# a stream apart from its initial conditions' (seeded with the seed).
+FORECAST_SEED_OFFSET = 1 << 32
 
 
 @dataclasses.dataclass
@@ -158,6 +168,41 @@ def reset_from_field(params: EnvParams, field, seeds, device=None):
                     ic['upwelling_ir'], wind)
 
 
+def reset(params: EnvParams, seeds, field_fn, device=None):
+  """Fresh episodes for `seeds` (reference balloon_arena.py:161-182): each
+  seed's forecast grid from field_fn(seeds, device) (see make_field_fn),
+  then reset_from_field. Returns (EnvState, observation (E, 1099))."""
+  device = resolve_device(device)
+  return reset_from_field(params, field_fn(seeds, device), seeds, device)
+
+
+def make_field_fn(kind: str = 'generative', decoder=None):
+  """A field_fn(seeds, device) for `reset`.
+
+  kinds: 'generative' decodes one grid per seed with `decoder`
+  (generative/vae.Decoder), from a latent drawn from that seed's own
+  generator, so a seed's world does not depend on its batch:
+  (E, 21, 21, 10, 9, 2). 'static' is the 4-direction test field
+  (reference wind_field.py:149-184), one grid shared by every env.
+  """
+  if kind == 'static':
+    return lambda seeds, device: wind_field_lib.simple_static_field(device)
+  if kind != 'generative':
+    raise ValueError(f'unknown wind field kind: {kind}')
+  if decoder is None:
+    raise ValueError('the generative field needs a decoder')
+
+  @torch.no_grad()
+  def field_fn(seeds, device):
+    z = torch.stack([vae.sample_latent(torch.Generator().manual_seed(
+        int(s) + FORECAST_SEED_OFFSET)) for s in seeds])
+    z = z.to(next(decoder.parameters()).device)
+    # Chunks of 1024 bound the decoder's float32 intermediates.
+    return torch.cat([decoder(c).to(device) for c in z.split(1024)])
+
+  return field_fn
+
+
 def init_state(params: EnvParams, atmosphere, t0, x_m, y_m, center_lat,
                center_lng, pressure, upwelling_ir,
                wind: wind_field_lib.WindFieldState):
@@ -233,6 +278,53 @@ def step_batched(params: EnvParams, state: EnvState, actions) -> StepOutput:
   state, obs = _observe_and_features(params, state, col, noise_u, noise_v,
                                      was_ok)
 
+  return _step_output(params, state, obs)
+
+
+def step(params: EnvParams, state: EnvState, actions,
+         refresh: str = 'auto') -> StepOutput:
+  """One agent step for every env by ble_tpu's single-env route
+  (ble_tpu/env/env.py:step and _post_physics; reference
+  balloon_env.py:157-190 + balloon_arena.py:184-202): equal to
+  jax.vmap(ble_tpu env.step). The GP error is the ground truth minus the
+  forecast, each looked up on its own, and the GP observe and the features'
+  column query are separate calls (on the card, the kernels of
+  ops/gp_observe.py and ops/gp_query.py).
+
+  refresh: 'auto' re-centres the slab every step when the cache is on;
+  'never' leaves it to the caller (refresh_field_cache).
+  """
+  if state.wind.slab is not None and refresh != 'never':
+    state = refresh_field_cache(state)
+  was_ok = state.balloon.status == balloon_lib.STATUS_OK
+  balloon = physics.simulate_step_fused(
+      params.balloon, state.atmosphere, state.balloon, state.wind_u,
+      state.wind_v, actions.to(torch.int32))
+  elapsed = balloon.time_elapsed_s.to(torch.float32)
+  wind_u, wind_v = wind_field_lib.get_ground_truth(
+      state.wind, balloon.x_m, balloon.y_m, balloon.pressure_pa, elapsed)
+  state = dataclasses.replace(
+      state, balloon=balloon, wind_u=wind_u, wind_v=wind_v,
+      sunrise_s=safety.advance_past(state.sunrise_s, balloon.time_s),
+      sunset_s=safety.advance_past(state.sunset_s, balloon.time_s),
+      steps=state.steps + 1)
+  forecast_u, forecast_v = wind_field_lib.get_forecast(
+      state.wind, balloon.x_m, balloon.y_m, balloon.pressure_pa, elapsed)
+  # Terminal balloons freeze; their exact-duplicate measurements stay out
+  # of the GP. The step where a balloon becomes terminal still observes.
+  gp = wind_gp.observe(state.gp, balloon.x_m, balloon.y_m,
+                       balloon.pressure_pa, elapsed, wind_u - forecast_u,
+                       wind_v - forecast_v, enabled=was_ok)
+  state = dataclasses.replace(state, gp=gp)
+  obs = features_lib.get_features(params.balloon, balloon, gp, state.wind,
+                                  state.atmosphere, state.sunrise_s,
+                                  state.sunset_s)
+  return _step_output(params, state, obs)
+
+
+def _step_output(params: EnvParams, state: EnvState, obs) -> StepOutput:
+  """Reward, done flags and info of the step that led to `state`."""
+  balloon = state.balloon
   excess = balloon_lib.excess_energy(params.balloon, balloon)
   reward = reward_function(params, balloon, excess)
   info = {

@@ -6,10 +6,13 @@ ls = (357 km, 357 km, 326 Pa, 34560 s), plus sigma_n^2 = 0.05 on the
 diagonal. Inactive slots are identity rows with zero targets. Every state
 leaf leads with the env axis.
 
-`observe` is the 9-d coordinate form of the JAX package's CPU path, kept
-as the reference the tests hold it to; the env step uses the fused
-observe + query of ops/gp_window.py. `refresh` is the exact inverse by
-Cholesky (a library call, as in the JAX package, outside any kernel).
+`observe` and `query_column` choose their route by the tensors' device,
+as the JAX functions choose theirs by backend: CUDA tensors go to the
+kernels of ops/gp_observe.py and ops/gp_query.py, CPU tensors take the JAX
+package's CPU route (the 9-d coordinate form of the observe, `query` for
+the column). The batched env step uses the fused observe + query of
+ops/gp_window.py instead. `refresh` is the exact inverse by Cholesky (a
+library call, as in the JAX package, outside any kernel).
 """
 
 import dataclasses
@@ -75,8 +78,18 @@ def observe(state: WindGPState, x_m, y_m, pressure_pa, elapsed_s,
   the span of B = [kinv U | U[:, :4]]; the sequence runs in those 9-d
   coordinates and is applied as one rank-8 update. `enabled` (E,) bool
   makes the call a no-op for envs where it is False.
+
+  CUDA tensors go to the observe kernel (ops/gp_observe.py), which applies
+  the same sequential updates directly to the inverse.
   """
   n = x_m.shape[0]
+  if x_m.is_cuda:
+    from ble_tpu_torch.ops import gp_observe
+    from ble_tpu_torch.ops import gp_window
+    if enabled is None:
+      enabled = torch.ones((n,), dtype=torch.bool, device=x_m.device)
+    return gp_observe.observe_kernel(state, gp_window.pack_obs(
+        x_m, y_m, pressure_pa, elapsed_s, error_u, error_v, enabled))
   dev = x_m.device
   t = elapsed_s.to(torch.float32)
   loc = torch.stack([x_m, y_m, pressure_pa, t], dim=-1)  # (E, 4)
@@ -212,7 +225,11 @@ def query(state: WindGPState, query_locations):
 
 
 def query_column(state: WindGPState, x_m, y_m, elapsed_s, pressures):
-  """GP posterior at a pressure column (L,) sharing each env's (x, y, t)."""
+  """GP posterior at a pressure column (L,) sharing each env's (x, y, t);
+  CUDA tensors go to the column-query kernel (ops/gp_query.py)."""
+  if x_m.is_cuda:
+    from ble_tpu_torch.ops import gp_query
+    return gp_query.query_kernel(state, x_m, y_m, elapsed_s, pressures)
   n, levels = x_m.shape[0], pressures.shape[0]
   bc = lambda v: v.to(torch.float32)[:, None].expand(n, levels)
   queries = torch.stack([bc(x_m), bc(y_m), pressures.expand(n, levels),

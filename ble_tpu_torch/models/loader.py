@@ -1,0 +1,70 @@
+"""Trained-model loading (the port of ble_tpu/models/loader.py; reference
+models/models.py:33-80).
+
+`offlineskies22_decoder.msgpack`, the flax msgpack of the VAE wind decoder,
+does not ship with the repository, so loading resolves in the JAX package's
+order: an explicit path, then $BLE_TPU_MODELS/<file>, then the file beside
+this module, then a deterministic untrained decoder drawn with seed 0.
+"""
+
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ble_tpu_torch import bridge
+from ble_tpu_torch import resolve_device
+from ble_tpu_torch.generative import vae
+
+_OFFLINESKIES_FILENAME = 'offlineskies22_decoder.msgpack'
+# flax.serialization's msgpack extension code for an ndarray.
+_EXT_NDARRAY = 1
+
+
+def _candidate_paths(filename: str, explicit: Optional[str]):
+  if explicit:
+    yield explicit
+  env_dir = os.environ.get('BLE_TPU_MODELS')
+  if env_dir:
+    yield os.path.join(env_dir, filename)
+  yield os.path.join(os.path.dirname(__file__), filename)
+
+
+def read_flax_msgpack(data: bytes):
+  """The nested dict of numpy arrays in flax.serialization's msgpack
+  format (an ndarray leaf is extension 1 holding (shape, dtype name,
+  bytes)). Needs the `msgpack` module."""
+  import msgpack
+
+  def ext_hook(code, payload):
+    if code != _EXT_NDARRAY:
+      raise ValueError(f'unsupported msgpack extension {code}')
+    shape, dtype, buf = msgpack.unpackb(payload, raw=True)
+    return np.frombuffer(buf, dtype=np.dtype(dtype.decode())).reshape(shape)
+
+  return msgpack.unpackb(data, ext_hook=ext_hook, raw=False)
+
+
+def load_offlineskies22(path: Optional[str] = None,
+                        device=None) -> vae.Decoder:
+  """The VAE wind decoder on `device` (default: cuda), in eval mode.
+
+  A blob that is found is read with the `msgpack` module; one that cannot
+  be read raises, it never falls back. With no blob the decoder is the
+  deterministic init of vae.init_decoder_params with a generator seeded
+  with 0. Its weights differ from the JAX package's fallback,
+  vae.init_decoder_params(PRNGKey(0)), since torch cannot reproduce
+  jax.random: the two packages decode different fields from the fallback.
+  """
+  device = resolve_device(device)
+  decoder = vae.Decoder()
+  for candidate in _candidate_paths(_OFFLINESKIES_FILENAME, path):
+    if os.path.exists(candidate):
+      with open(candidate, 'rb') as f:
+        params = bridge.decoder_params_from_flax(read_flax_msgpack(f.read()))
+      break
+  else:
+    params = vae.init_decoder_params(torch.Generator().manual_seed(0))
+  decoder.load_state_dict(params)
+  return decoder.to(device).eval()

@@ -3,7 +3,8 @@ a plain C interface and loads them with ctypes.
 
 Each source compiles on its own with nvcc for sm_90a, at first use, into
 `ble_tpu_torch/_build/` (listed in .gitignore); the library's file name
-carries a hash of the source and flags, so an edited source rebuilds.
+carries a hash of the source, the shared headers (csrc/*.cuh) and the
+flags, so an edited source or header rebuilds.
 `build()` starts one nvcc per source, all at once, and waits for them;
 nvcc's output, with ptxas's register and spill report, is kept beside each
 library as `<library>.log`.
@@ -28,6 +29,8 @@ _COMMON_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
 SOURCES = {
     'physics': ('--fmad=false',),
     'gp_window': (),
+    'gp_observe': (),
+    'gp_query': (),
 }
 
 _loaded = {}
@@ -51,6 +54,9 @@ def library_path(name: str) -> str:
   src = os.path.join(CSRC_DIR, f'{name}.cu')
   with open(src, 'rb') as f:
     digest = hashlib.sha256(f.read())
+  for header in sorted(n for n in os.listdir(CSRC_DIR) if n.endswith('.cuh')):
+    with open(os.path.join(CSRC_DIR, header), 'rb') as f:
+      digest.update(f.read())
   digest.update(' '.join(_COMMON_FLAGS + SOURCES[name]).encode())
   return os.path.join(BUILD_DIR, f'lib{name}-{digest.hexdigest()[:16]}.so')
 
@@ -104,3 +110,16 @@ def check(status: int, what: str) -> None:
   """Raises if a C entry point returned a CUDA error code."""
   if status != 0:
     raise RuntimeError(f'{what}: CUDA error {status}')
+
+
+def check_buffers(device, specs) -> None:
+  """Raises unless every (name, tensor, shape, dtype) of `specs` is a
+  contiguous, 16-byte aligned CUDA tensor of that shape and dtype on
+  `device`: what the kernels' C entry points take."""
+  for name, a, shape, dtype in specs:
+    if (tuple(a.shape) != tuple(shape) or a.dtype != dtype or
+        not a.is_cuda or a.device != device or not a.is_contiguous() or
+        a.data_ptr() % 16):
+      raise ValueError(f'{name}: expected a contiguous, 16-byte aligned '
+                       f'{dtype} {tuple(shape)} on {device}, got {a.dtype} '
+                       f'{tuple(a.shape)} on {a.device}')

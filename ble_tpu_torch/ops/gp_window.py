@@ -129,10 +129,12 @@ def _observe_core(x, y, p, t, enabled, loc_in, active, kinv, count):
   return locations, active_final, kinv_new, sm, count_new
 
 
-def _step_one(obs, loc_in, err_in, active, kinv, alpha_in, count, pres):
-  """Every env, one step: observe, then query the updated state at the
-  181 levels (pallas_gp_window._step_one). Returns the new state tensors
-  and level (E, 181, 3) = [mean_u, mean_v, deviation]."""
+def observe_one(obs, loc_in, err_in, active, kinv, alpha_in, count):
+  """Every env's observe of one (E, 8) observation row
+  (pallas_gp_observe._run_one): `_observe_core`, then the error-row insert,
+  alpha = kinv' targets and the enabled select of pallas_gp_observe._finish.
+  Returns the new (locations, errors, active as 0/1 float32, kinv, alpha,
+  count)."""
   x, y, p, t = obs[:, 0], obs[:, 1], obs[:, 2], obs[:, 3]
   eu, ev = obs[:, 4], obs[:, 5]
   enabled = obs[:, 6] > 0.5
@@ -147,11 +149,19 @@ def _step_one(obs, loc_in, err_in, active, kinv, alpha_in, count, pres):
 
   en2 = enabled[:, None]
   en3 = enabled[:, None, None]
-  loc = torch.where(en3, loc_mid, loc_in)
-  err = torch.where(en3, errors, err_in)
-  act = torch.where(en2, active_final, active)
-  kv = torch.where(en3, kinv_new, kinv)
-  al = torch.where(en3, alpha, alpha_in)
+  return (torch.where(en3, loc_mid, loc_in), torch.where(en3, errors, err_in),
+          torch.where(en2, active_final, active),
+          torch.where(en3, kinv_new, kinv), torch.where(en3, alpha, alpha_in),
+          count_new)
+
+
+def _step_one(obs, loc_in, err_in, active, kinv, alpha_in, count, pres):
+  """Every env, one step: observe, then query the updated state at the
+  181 levels (pallas_gp_window._step_one). Returns the new state tensors
+  and level (E, 181, 3) = [mean_u, mean_v, deviation]."""
+  loc, err, act, kv, al, count_new = observe_one(obs, loc_in, err_in, active,
+                                                 kinv, alpha_in, count)
+  x, y, t = obs[:, 0], obs[:, 1], obs[:, 3]
 
   lsx, lsy, lsp, lst = _LS
   qdx = (x[:, None] - loc[..., 0]) / lsx
@@ -195,20 +205,14 @@ def launch(obs, loc, err, act, kinv, alpha, count):
   the new (loc, err, act, kinv, alpha, count) buffers and level
   (K, E, 181, 3)."""
   k_steps, n = obs.shape[0], obs.shape[1]
-  for name, a, shape, dtype in (
+  cuda_build.check_buffers(obs.device, (
       ('obs_seq', obs, (k_steps, n, 8), torch.float32),
       ('locations', loc, (n, CAP, 4), torch.float32),
       ('errors', err, (n, CAP, 2), torch.float32),
       ('active', act, (n, CAP), torch.float32),
       ('kinv', kinv, (n, CAP, CAP), torch.float32),
       ('alpha', alpha, (n, CAP, 2), torch.float32),
-      ('count', count, (n,), torch.int32)):
-    if (tuple(a.shape) != shape or a.dtype != dtype or not a.is_cuda or
-        a.device != obs.device or not a.is_contiguous() or
-        a.data_ptr() % 16):
-      raise ValueError(f'{name}: expected a contiguous, 16-byte aligned '
-                       f'{dtype} {shape} on {obs.device}, got {a.dtype} '
-                       f'{tuple(a.shape)} on {a.device}')
+      ('count', count, (n,), torch.int32)))
   outs = [torch.empty_like(a) for a in (loc, err, act, kinv, alpha, count)]
   level = torch.empty((k_steps, n, NUM_LEVELS, 3), dtype=torch.float32,
                       device=obs.device)

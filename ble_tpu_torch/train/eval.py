@@ -3,15 +3,20 @@
 Example, from the root of a checkout (writes
 results/eval/station_seeker_tiny_eval.json there):
   python -m ble_tpu_torch.train.eval --agent station_seeker \\
-      --suite tiny_eval --wind_field static
+      --suite tiny_eval --wind_field generative
+
+The generative field decodes one grid per seed with the VAE decoder that
+models/loader.py resolves (the deterministic fallback when no trained blob
+is found).
 """
 
 import argparse
 import os
 
+from ble_tpu_torch.agents import random_walk
 from ble_tpu_torch.agents import station_seeker
 from ble_tpu_torch.env import env as env_lib
-from ble_tpu_torch.env import wind_field
+from ble_tpu_torch.models import loader
 from ble_tpu_torch.train import eval_lib
 from ble_tpu_torch.train import suites
 
@@ -21,16 +26,20 @@ def make_policy_fns(agent_name: str):
   if agent_name == 'station_seeker':
     return (lambda n, gen: (),
             lambda state, obs, gen: (state, station_seeker.pick_action(obs)))
+  if agent_name == 'random':
+    return random_walk.random_policy(env_lib.NUM_ACTIONS)
+  if agent_name == 'random_walk':
+    return random_walk.init, random_walk.step
   raise ValueError(f'Unknown agent: {agent_name}')
 
 
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__)
   parser.add_argument('--agent', type=str, default='station_seeker',
-                      choices=['station_seeker'])
+                      choices=['station_seeker', 'random', 'random_walk'])
   parser.add_argument('--suite', type=str, default='micro_eval',
                       choices=suites.available_suites())
-  parser.add_argument('--wind_field', type=str, default='static',
+  parser.add_argument('--wind_field', type=str, default='generative',
                       choices=['generative', 'static'])
   parser.add_argument('--output_dir', type=str,
                       default=os.path.join('results', 'eval'),
@@ -45,18 +54,18 @@ def main(argv=None):
                       help='Disable the windowed field-slab cache.')
   args = parser.parse_args(argv)
 
-  if args.wind_field == 'generative':
-    raise NotImplementedError(
-        'The generative wind field needs the VAE decoder, which is not '
-        'ported yet (ROADMAP.md item A9); use --wind_field static.')
   suite = suites.get_eval_suite(args.suite)
   env_params = env_lib.EnvParams(wind_field_f32=args.f32_grid,
                                  field_cache=not args.no_field_cache)
+  if args.wind_field == 'generative':
+    field_fn = env_lib.make_field_fn(
+        'generative', loader.load_offlineskies22(device=args.device))
+  else:
+    field_fn = env_lib.make_field_fn('static')
   policy_init, policy_step = make_policy_fns(args.agent)
   eval_fn = eval_lib.build_eval_fn(
-      env_params, wind_field.simple_static_field(), policy_init, policy_step,
-      max_steps=suite.max_episode_length,
-      device=args.device)
+      env_params, field_fn, policy_init, policy_step,
+      max_steps=suite.max_episode_length, device=args.device)
   results = eval_lib.evaluate(eval_fn, suite.seeds,
                               batch_size=min(args.batch_size,
                                              len(suite.seeds)))

@@ -33,7 +33,7 @@ class EvaluationResult:
   flight_path: Optional[List[Dict[str, float]]] = None
 
 
-def build_eval_fn(env_params: env_lib.EnvParams, field,
+def build_eval_fn(env_params: env_lib.EnvParams, field_fn: Callable,
                   policy_init: Callable, policy_step: Callable,
                   max_steps: int = 960, record_flight_path: bool = False,
                   from_states: bool = False, device=None):
@@ -41,7 +41,8 @@ def build_eval_fn(env_params: env_lib.EnvParams, field,
 
   Args:
     env_params: environment parameters.
-    field: the (21, 21, 10, 9, 2) forecast grid every env starts from.
+    field_fn: (seeds, device) -> the forecast grid every env starts from,
+      (21, 21, 10, 9, 2), or one per env (env.make_field_fn).
     policy_init: (num_envs, generator) -> policy state.
     policy_step: (policy_state, obs (E, 1099), generator) ->
       (policy_state, actions (E,) int32).
@@ -64,8 +65,7 @@ def build_eval_fn(env_params: env_lib.EnvParams, field,
   def run(seeds, env_state=None, obs=None):
     seeds = [int(s) for s in seeds]
     if env_state is None:
-      env_state, obs = env_lib.reset_from_field(env_params, field, seeds,
-                                                device)
+      env_state, obs = env_lib.reset(env_params, seeds, field_fn, device)
     n = len(seeds)
     gen = torch.Generator().manual_seed(seeds[0] if seeds else 0)
     pstate = policy_init(n, gen)

@@ -7,24 +7,33 @@ each of its hand-written CUDA kernels against its plain PyTorch version.
 
 Phases (each raises on a failure, so the exit code is then not 0):
   device     requires CUDA; prints the card's name and power limit.
-  build      compiles csrc/physics.cu and csrc/gp_window.cu for sm_90a,
-             one nvcc each, in parallel, and prints ptxas's report.
-  kernels    B1, the physics substeps, at E = 4096 envs and 18 substeps on
-             states from the port's own reset, and B2, the GP window, at
-             E = 4096 for K = 1 and K = 8 on a GP state warmed through
-             expiries and ring wraparound, each against its plain version
-             on the same CUDA inputs.
+  build      compiles every csrc/*.cu for sm_90a, one nvcc each, in
+             parallel, and prints ptxas's report.
+  kernels    each kernel against its plain version on the same CUDA
+             inputs: B1, the physics substeps, at E = 4096 envs and 18
+             substeps on states from the port's own reset; B2, the GP
+             window, at E = 4096 for K = 1 and K = 8 on a GP state warmed
+             through expiries and ring wraparound; the GP observe at E = 1
+             (B3) and E = 4096 (B4, every 4th env disabled); the column
+             query (B5) at E = 1 and 4096; and the 960-step churn-drift
+             track through B3.
   reference  an 8-env, 32-step StationSeeker eval on the card (kernels)
              against the same eval on the CPU (plain versions).
+  gym        this slice's path: BalloonEnv(wind_field='generative'), 128
+             StationSeeker steps through env.step at a batch of one; B1,
+             B3 and B5 launch once a step; the first 16 steps against the
+             same env on the CPU; the step's wall time and device share.
+  pair       env.step (B1, B4, B5) against step_batched (B1, B2) from the
+             same state, E = 4096 on per-env generative fields, 8 steps.
   main       the main path: the StationSeeker eval over E = 4096 envs,
-             static field, slab cache on, 128 steps (two exact GP
-             refreshes, sixteen slab re-centres); both kernels' launch
-             counters must advance, the observations stay finite and the
+             each on its own VAE-decoded field, slab cache on, 128 steps
+             (two exact GP refreshes, sixteen slab re-centres); B1 and B2
+             must launch every step, the observations stay finite and the
              time within radius lies in [0, 1]. Run twice from one
              initial state: the first run is counted, the second timed.
-  timing     each kernel at the main path's shapes with CUDA events,
-             beside its plain version, a library call where one computes
-             the same function, and its bound.
+  timing     each kernel at its path's shapes with CUDA events, beside its
+             plain version, a library call where one computes the same
+             function or its dominant term, and its bound.
   numerics   (not in the default set) B1's kernel, its plain version on
              the card and on the CPU against each other after 1 and 18
              substeps.
@@ -34,6 +43,9 @@ Phases (each raises on a failure, so the exit code is then not 0):
   profile    (not in the default set) torch.profiler over 16 steps of the
              main path: time by operator on the device and on the host,
              and the device's busy share.
+
+The generative fields come from the VAE decoder's deterministic fallback
+(models/loader.py): no trained decoder is in the repository.
 
 Prints the kernels' JSON line and the nvidia-smi line, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -53,7 +65,8 @@ import torch
 DEV = 'cuda'
 E = 4096
 MAIN_STEPS = 128
-DEFAULT_PHASES = ('device', 'build', 'kernels', 'reference', 'main', 'timing')
+DEFAULT_PHASES = ('device', 'build', 'kernels', 'reference', 'gym', 'pair',
+                  'main', 'timing')
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
 # float32 on the CUDA cores and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
@@ -165,7 +178,8 @@ def b1_inputs(params, state):
   from ble_tpu_torch.env import balloon as balloon_lib
   from ble_tpu_torch.ops import physics
   g = torch.Generator().manual_seed(1)
-  action = torch.randint(0, 3, (E,), generator=g).to(DEV)
+  n = state.balloon.x_m.shape[0]
+  action = torch.randint(0, 3, (n,), generator=g).to(DEV)
   b, act = balloon_lib.apply_safety(params.balloon, state.atmosphere,
                                     state.balloon, action)
   bufs = physics.pack(b, state.atmosphere, state.wind_u, state.wind_v, act)
@@ -196,7 +210,7 @@ def check_b1(params, state) -> dict:
   for name, over in excess.items():
     check(over <= 0, f'B1 {name} exceeds its tolerance by {over}')
   statuses = torch.bincount(got.status.long(), minlength=4).tolist()
-  log(f'B1 ok: E={E}, 18 substeps, statuses after {statuses}')
+  log(f'B1 ok: E={b.x_m.shape[0]}, 18 substeps, statuses after {statuses}')
   return {'max_abs_err': errs['pressure_pa']}
 
 
@@ -278,17 +292,41 @@ def warmed_gp_state(seed: int = 0):
   return state
 
 
+# Float operations of one env's observe: M = kinv U, S = U^T M, the update
+# vectors, the rank-8 update ((w_i c) w_j summed over 8 terms) and alpha.
+OBSERVE_OPS = (2 * 128 * 128 * 4 + 2 * 16 * 128 + 128 * 30 +
+               (2 * 8 + 1) * 128 * 128 + 2 * 2 * 128 * 128)
+
+
+def query_ops(levels: int) -> float:
+  """Float operations of one env's column query at `levels` pressures:
+  the x/y/t distances, k* (8 a level and slot), means, v = k* kinv, the
+  variance dot and the clip."""
+  cap = 128
+  return (cap * 10 + cap * levels * 8 + 2 * 2 * cap * levels +
+          2 * cap * cap * levels + 2 * cap * levels + 4 * levels)
+
+
+def observe_bytes(n: int) -> float:
+  """Each input read once and each output written once: the state in and
+  out, and the observation row."""
+  state = 128 * 4 + 128 * 2 + 128 + 128 * 128 + 128 * 2 + 1
+  return 4.0 * n * (2 * state + 8)
+
+
+def query_bytes(n: int, levels: int) -> float:
+  """The state the query reads, the (x, y, t) row, the pressures and the
+  (n, levels, 3) output."""
+  state = 128 * 4 + 128 + 128 * 128 + 128 * 2
+  return 4.0 * (n * (state + 4 + levels * 3) + levels)
+
+
 def b2_ops(obs_seq) -> float:
   """Float operations of the GP window for these inputs: every env and
   step runs the query; enabled steps also run the observe."""
-  cap, lv = 128, 181
   enabled = float((obs_seq[..., 6] > 0.5).sum())
   env_steps = obs_seq.shape[0] * obs_seq.shape[1]
-  observe = (2 * cap * cap * 4 + 2 * 16 * cap + cap * 30 +
-             (2 * 8 + 1) * cap * cap + 2 * 2 * cap * cap)
-  query = (cap * 10 + cap * lv * 8 + 2 * 2 * cap * lv +
-           2 * cap * cap * lv + 2 * cap * lv + 4 * lv)
-  return enabled * observe + env_steps * query
+  return enabled * OBSERVE_OPS + env_steps * query_ops(181)
 
 
 def b2_bytes(obs_seq) -> float:
@@ -378,6 +416,123 @@ def phase_calibrate() -> None:
   log('calibrate: max over seeds:', json.dumps(worst))
 
 
+# ------------------------------------------------------------ B3-B5 ------
+
+
+# tests/test_pallas_gp_observe.py:119-122's tolerance for kinv and alpha of
+# the observe kernel; tests/test_pallas_gp.py:100-103's for the column query
+# on hardware.
+B3_ATOL = 5e-3
+B5_ATOL = {'means': 2e-4, 'deviations': 5e-5}
+
+
+def gp_track_state(n: int, steps: int, seed: int = 0):
+  """A GP state at n envs after `steps` observations of gp_obs_seq's
+  tracks, built with the plain observe, and the next observation row."""
+  from ble_tpu_torch.env import wind_gp
+  from ble_tpu_torch.ops import gp_observe
+  obs = gp_obs_seq(seed, steps + 1, n)
+  state = wind_gp.init(n, DEV)
+  for k in range(steps):
+    state = gp_observe.observe_plain(state, obs[k])
+  return state, obs[steps]
+
+
+def check_b3_b4(state, obs, name: str) -> dict:
+  """The observe kernel against its plain version from `state` on one
+  observation row: slot bookkeeping exactly, kinv and alpha to B3_ATOL,
+  and envs whose enabled flag is 0 exactly unchanged."""
+  from ble_tpu_torch.ops import gp_observe
+  got = gp_observe.observe_kernel(state, obs)
+  want = gp_observe.observe_plain(state, obs)
+  torch.cuda.synchronize()
+  for field in ('active', 'count', 'locations', 'errors'):
+    check(torch.equal(getattr(got, field), getattr(want, field)),
+          f'{name} {field} differs')
+  off = obs[:, 6] < 0.5
+  for field in ('locations', 'errors', 'active', 'kinv', 'alpha', 'count'):
+    check(torch.equal(getattr(got, field)[off], getattr(state, field)[off]),
+          f'{name} disabled envs changed {field}')
+  errs = {f: float((getattr(got, f) - getattr(want, f)).abs().max())
+          for f in ('kinv', 'alpha')}
+  log(f'{name} E={obs.shape[0]} ({int(off.sum())} disabled) max |kernel - '
+      f'plain|:', json.dumps(errs))
+  for f, err in errs.items():
+    check(err <= B3_ATOL, f'{name} {f} error {err} > {B3_ATOL}')
+  return {'max_abs_err': max(errs.values())}
+
+
+def check_b3_drift() -> None:
+  """tests/test_torch_gp_observe.py's 960-step churn-drift track through
+  the observe kernel at E = 1, with and without an exact refresh every 64
+  steps: the incremental posterior on a 181-level column against the exact
+  inverse's, mean < 5e-2 m/s and deviation < 1e-3."""
+  from ble_tpu_torch.env import wind_gp
+  from ble_tpu_torch.ops import gp_observe
+  from ble_tpu_torch.ops import gp_window
+  for period in (0, wind_gp.REFRESH_PERIOD):
+    rng = np.random.RandomState(3)
+    state = wind_gp.init(1, DEV)
+    x = y = 0.0
+    p = 9000.0
+    for i in range(960):
+      if period and i % period == 0:
+        state = wind_gp.refresh(state)
+      x += rng.uniform(-800, 800)
+      y += rng.uniform(-800, 800)
+      p = np.clip(p + rng.uniform(-40, 40), 6000, 12000)
+      eu, ev = rng.randn(2) * 2.0
+      row = torch.tensor([[np.float32(x), np.float32(y), np.float32(p),
+                           i * 180.0, eu, ev, 1.0, 0.0]], dtype=torch.float32)
+      state = gp_observe.observe_kernel(state, row.to(DEV))
+    levels = gp_window.pressure_levels(DEV)
+    q = torch.stack([torch.full_like(levels, float(np.float32(x))),
+                     torch.full_like(levels, float(np.float32(y))), levels,
+                     torch.full_like(levels, 960 * 180.0)], dim=-1)[None]
+    inc = wind_gp.query(state, q)
+    ex = wind_gp.query(wind_gp.refresh(state), q)
+    drift = [float((inc[0] - ex[0]).abs().max()),
+             float((inc[1] - ex[1]).abs().max())]
+    log(f'B3 960-step drift, refresh every {period or "never"}: mean '
+        f'{drift[0]:.3g} m/s, deviation {drift[1]:.3g}')
+    check(drift[0] < 5e-2 and drift[1] < 1e-3, f'B3 drift {drift}')
+
+
+def check_b5(state, xs, ys, ts, name: str) -> dict:
+  """The column-query kernel against its plain version at the 181 feature
+  levels: means and deviations to B5_ATOL, shapes and finiteness."""
+  from ble_tpu_torch.ops import gp_query
+  from ble_tpu_torch.ops import gp_window
+  args = gp_query.pack(state, xs, ys, ts, gp_window.pressure_levels(DEV))
+  got = gp_query.launch(*args)
+  want = gp_query.query_plain(*args)
+  torch.cuda.synchronize()
+  n = xs.shape[0]
+  check(tuple(got.shape) == (n, 181, 3), f'{name} shape {got.shape}')
+  check(bool(torch.isfinite(got).all()), f'{name} not finite')
+  errs = {'means': float((got[..., :2] - want[..., :2]).abs().max()),
+          'deviations': float((got[..., 2] - want[..., 2]).abs().max())}
+  log(f'{name} E={n} max |kernel - plain|:', json.dumps(errs))
+  for f, err in errs.items():
+    check(err <= B5_ATOL[f], f'{name} {f} error {err} > {B5_ATOL[f]}')
+  return {'max_abs_err': max(errs.values())}
+
+
+def check_b3_b4_b5(gp_state) -> dict:
+  """B3 at E = 1 and B4 at E = 4096 from warmed states (odd step: every
+  4th env disabled), B5 at E = 1 and 4096, and B3's drift track."""
+  state1, obs1 = gp_track_state(1, 140, seed=5)
+  errs = {'gp_observe_b3': check_b3_b4(state1, obs1, 'B3')}
+  obs = gp_obs_seq(1, 2, E, t0_step=140)[1]
+  errs['gp_observe_b4'] = check_b3_b4(gp_state, obs, 'B4')
+  errs['gp_query_gym'] = check_b5(state1, obs1[:, 0], obs1[:, 1],
+                                  obs1[:, 3], 'B5')
+  errs['gp_query_pair'] = check_b5(gp_state, obs[:, 0], obs[:, 1],
+                                   obs[:, 3], 'B5')
+  check_b3_drift()
+  return errs
+
+
 # ------------------------------------------------------------ phases ------
 
 
@@ -395,14 +550,31 @@ def phase_build():
     cuda_build.load(name)
 
 
-def reset_main(params):
+def generative_field_fn():
+  """One VAE-decoded grid per seed, from the loader's decoder (its
+  deterministic fallback: no trained blob is in the repository)."""
   from ble_tpu_torch.env import env as env_lib
-  from ble_tpu_torch.env import wind_field
+  from ble_tpu_torch.models import loader
+  return env_lib.make_field_fn('generative',
+                               loader.load_offlineskies22(device=DEV))
+
+
+def static_field_fn():
+  from ble_tpu_torch.env import env as env_lib
+  return env_lib.make_field_fn('static')
+
+
+def reset_main(params, field_fn):
+  from ble_tpu_torch.env import env as env_lib
   t = time.perf_counter()
-  state, obs = env_lib.reset_from_field(
-      params, wind_field.simple_static_field(), list(range(E)), device=DEV)
+  state, obs = env_lib.reset(params, list(range(E)), field_fn, DEV)
   torch.cuda.synchronize()
-  log(f'reset: E={E} in {time.perf_counter() - t:.2f} s')
+  log(f'reset: E={E} on per-env generative fields in '
+      f'{time.perf_counter() - t:.2f} s')
+  check(tuple(state.wind.field.shape) == (E, 21, 21, 10, 9, 2),
+        f'field shape {state.wind.field.shape}')
+  check(bool(torch.isfinite(state.wind.field.float()).all()),
+        'decoded fields not finite')
   return state, obs
 
 
@@ -426,13 +598,12 @@ def phase_reference():
   kernel does from it; phase numerics).
   """
   from ble_tpu_torch.env import env as env_lib
-  from ble_tpu_torch.env import wind_field
   from ble_tpu_torch.train import eval_lib
   params = env_lib.EnvParams(field_cache=True)
   steps = 32
   out = {}
   for device in ('cuda', 'cpu'):
-    fn = eval_lib.build_eval_fn(params, wind_field.simple_static_field(),
+    fn = eval_lib.build_eval_fn(params, static_field_fn(),
                                 *policy(), max_steps=steps,
                                 record_flight_path=True, device=device)
     out[device] = {k: v.cpu() for k, v in fn(list(range(8))).items()}
@@ -454,26 +625,161 @@ def phase_reference():
   log(f'reference ok: cumulative reward error {rew_err:.3g}')
 
 
-def phase_main(params, state0, obs0) -> dict:
+def _reset_counts():
+  from ble_tpu_torch.ops import gp_observe
+  from ble_tpu_torch.ops import gp_query
   from ble_tpu_torch.ops import gp_window
   from ble_tpu_torch.ops import physics
+  counters = {'physics': physics.launch, 'gp_window': gp_window.launch,
+              'gp_observe': gp_observe.launch, 'gp_query': gp_query.launch}
+  for launcher in counters.values():
+    launcher.launches = 0
+  return lambda: {k: v.launches for k, v in counters.items()}
+
+
+def device_time(fn, steps: int):
+  """torch.profiler over fn() (which runs `steps` steps and synchronises):
+  (device kernel ms per step, kernel launches per step, the profile)."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    fn()
+  events = prof.key_averages()
+  kernels = [e for e in events
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+  device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+  return device_ms, sum(e.count for e in kernels) / steps, events
+
+
+GYM_STEPS = 128
+GYM_CHECK_STEPS = 16
+
+
+def phase_gym() -> dict:
+  """This slice's path: BalloonEnv(wind_field='generative') on the card,
+  the user's single-env entry, for GYM_STEPS StationSeeker steps through
+  env.step; B1, B3 and B5 must each launch once a step. Its first
+  GYM_CHECK_STEPS steps against the same env on the CPU (plain versions),
+  driven with the card's actions: x and y within 0.05 km, elapsed time
+  exactly, state of charge within 1e-3 (the golden trajectory's bounds,
+  tests/test_golden_trajectory.py:39-46). Then the step's wall time, and
+  its device time and busy share under torch.profiler over 16 more steps.
+  Returns the launches of the path's kernels and the env's state, at which
+  phase timing times B1 and B5 at E = 1."""
+  from ble_tpu_torch.agents import station_seeker
+  from ble_tpu_torch.env import gym_env
+  env = gym_env.BalloonEnv(wind_field='generative', seed=7, device=DEV)
+  obs, info = env.reset(seed=7)
+  check(obs.shape == (1099,) and info == {}, 'gym reset output')
+  actions, infos = [], []
+  counts = _reset_counts()
+  t = time.perf_counter()
+  for _ in range(GYM_STEPS):
+    action = int(station_seeker.pick_action(torch.from_numpy(obs)[None])[0])
+    obs, reward, terminated, truncated, info = env.step(action)
+    check(obs.shape == (1099,) and bool(np.isfinite(obs).all()),
+          'gym observation not finite')
+    check(0.0 <= reward <= 1.0 and truncated is False, 'gym step output')
+    actions.append(action)
+    infos.append(info)
+  torch.cuda.synchronize()
+  wall_ms = 1e3 * (time.perf_counter() - t) / GYM_STEPS
+  launches = counts()
+  log(f'gym: {GYM_STEPS} steps, launches {json.dumps(launches)}, '
+      f'{wall_ms:.2f} ms a step, terminated {terminated}')
+  for name in ('physics', 'gp_observe', 'gp_query'):
+    check(launches[name] == GYM_STEPS,
+          f'gym: {name} launched {launches[name]} times in {GYM_STEPS} steps')
+  check(launches['gp_window'] == 0, 'gym: the fused GP kernel ran')
+
+  cpu = gym_env.BalloonEnv(wind_field='generative', seed=7, device='cpu')
+  cpu.reset(seed=7)
+  worst = dict.fromkeys(('x_km', 'y_km', 'time_elapsed_s', 'battery_soc'),
+                        0.0)
+  for action, got in zip(actions[:GYM_CHECK_STEPS], infos):
+    want = cpu.step(action)[4]
+    for key in worst:
+      worst[key] = max(worst[key], abs(got[key] - want[key]))
+  log(f'gym: first {GYM_CHECK_STEPS} steps, max |card - cpu|:',
+      json.dumps(worst))
+  for key, limit in (('x_km', 0.05), ('y_km', 0.05), ('time_elapsed_s', 0),
+                     ('battery_soc', 1e-3)):
+    check(worst[key] <= limit, f'gym {key} error {worst[key]} > {limit}')
+
+  def more_steps(n=16):
+    for _ in range(n):
+      env.step(1)
+    torch.cuda.synchronize()
+
+  more_steps()
+  t = time.perf_counter()
+  more_steps()
+  steady_ms = 1e3 * (time.perf_counter() - t) / 16
+  device_ms, per_step, _ = device_time(more_steps, 16)
+  summary = {'wall_ms_per_step': wall_ms, 'steady_wall_ms_per_step': steady_ms,
+             'device_ms_per_step': device_ms,
+             'device_launches_per_step': per_step,
+             'device_busy_share': device_ms / steady_ms}
+  log('gym:', json.dumps(summary))
+  return {'physics_gym': launches['physics'],
+          'gp_observe_b3': launches['gp_observe'],
+          'gp_query_gym': launches['gp_query']}, env.get_simulator_state()
+
+
+PAIR_STEPS = 8
+
+
+def phase_pair(field_fn) -> dict:
+  """The two step routes from the same state: env.step (B1, B4, B5) and
+  step_batched (B1, B2), E = 4096 envs on per-env generative fields,
+  PAIR_STEPS StationSeeker steps along env.step's trajectory with the slab
+  re-centred before each. Observations within 5e-3 (B2's tolerance, as the
+  two routes differ in GP summation order and in the GP error: truth -
+  forecast against the noise itself), rewards equal (same physics)."""
+  from ble_tpu_torch.agents import station_seeker
+  from ble_tpu_torch.env import env as env_lib
+  params = env_lib.EnvParams(field_cache=True)
+  state, obs = env_lib.reset(params, list(range(E)), field_fn, DEV)
+  counts = _reset_counts()
+  worst = 0.0
+  for _ in range(PAIR_STEPS):
+    state = env_lib.refresh_field_cache(state)
+    action = station_seeker.pick_action(obs)
+    out = env_lib.step(params, state, action, refresh='never')
+    ref = env_lib.step_batched(params, state, action)
+    check(bool(torch.isfinite(out.observation).all()), 'pair obs not finite')
+    check(torch.equal(out.reward, ref.reward), 'pair rewards differ')
+    worst = max(worst, float((out.observation - ref.observation).abs().max()))
+    state, obs = out.state, out.observation
+  torch.cuda.synchronize()
+  launches = counts()
+  log(f'pair: E={E}, {PAIR_STEPS} steps, launches {json.dumps(launches)}, '
+      f'max |env.step obs - step_batched obs| {worst:.3g}')
+  check(worst <= 5e-3, f'pair observation error {worst} > 5e-3')
+  for name, want in (('physics', 2 * PAIR_STEPS), ('gp_observe', PAIR_STEPS),
+                     ('gp_query', PAIR_STEPS), ('gp_window', PAIR_STEPS)):
+    check(launches[name] == want, f'pair: {name} launched {launches[name]}')
+  return {'gp_observe_b4': launches['gp_observe'],
+          'gp_query_pair': launches['gp_query']}
+
+
+def phase_main(params, field_fn, state0, obs0) -> dict:
   from ble_tpu_torch.train import eval_lib
-  from ble_tpu_torch.env import wind_field
-  run = eval_lib.build_eval_fn(params, wind_field.simple_static_field(),
-                               *policy(), max_steps=MAIN_STEPS,
+  run = eval_lib.build_eval_fn(params, field_fn, *policy(),
+                               max_steps=MAIN_STEPS,
                                from_states=True, device=DEV)
   seeds = list(range(E))
-  physics.launch.launches = 0
-  gp_window.launch.launches = 0
+  counts = _reset_counts()
   t = time.perf_counter()
   result = run(seeds, state0, obs0)
   torch.cuda.synchronize()
   first_s = time.perf_counter() - t
-  launches = {'physics': physics.launch.launches,
-              'gp_window': gp_window.launch.launches}
+  launches = counts()
   log(f'main: launches {json.dumps(launches)}')
   check(launches['physics'] >= MAIN_STEPS, 'B1 was not launched per step')
   check(launches['gp_window'] >= MAIN_STEPS, 'B2 was not launched per step')
+  launches = {k: launches[k] for k in ('physics', 'gp_window')}
   twr = result['time_within_radius']
   check(tuple(twr.shape) == (E,), f'twr shape {twr.shape}')
   check(bool(((twr >= 0) & (twr <= 1)).all()), 'twr outside [0, 1]')
@@ -489,8 +795,8 @@ def phase_main(params, state0, obs0) -> dict:
     checks.append(torch.isfinite(obs).all())
     return policy()[1](st, obs, gen)
 
-  run2 = eval_lib.build_eval_fn(params, wind_field.simple_static_field(),
-                                lambda n, g: (), policy_step,
+  run2 = eval_lib.build_eval_fn(params, field_fn, lambda n, g: (),
+                                policy_step,
                                 max_steps=MAIN_STEPS, from_states=True,
                                 device=DEV)
   t = time.perf_counter()
@@ -513,12 +819,10 @@ def phase_main(params, state0, obs0) -> dict:
           'per_step_ms': 1e3 * second_s / MAIN_STEPS}
 
 
-def phase_timing(params, state, gp_state) -> dict:
+def time_b1(params, state) -> dict:
+  """B1 at the batch of `state` with random actions."""
   from ble_tpu_torch.env import balloon as balloon_lib
-  from ble_tpu_torch.ops import gp_window
   from ble_tpu_torch.ops import physics
-  out = {}
-
   b, act, bufs = b1_inputs(params, state)
   f32_out, i32_out = torch.empty_like(bufs[0]), torch.empty_like(bufs[1])
   params_c = physics.uniform_params(params.balloon)
@@ -532,11 +836,43 @@ def phase_timing(params, state, gp_state) -> dict:
   elapsed1 = i32_out[1]
   substeps = float(((elapsed1 - elapsed0) // 10).sum())
   by_class = b1_ops_ms(substeps)
-  nbytes = 4.0 * E * (16 + 3 + 23 + 2 + 1 + 16 + 3)
-  out['physics'] = _bound_row(ms, plain_ms, None, max(by_class.values()),
-                              nbytes)
-  out['physics']['ops_ms_by_class'] = by_class
-  out['physics']['substeps_run'] = substeps
+  nbytes = 4.0 * b.x_m.shape[0] * (16 + 3 + 23 + 2 + 1 + 16 + 3)
+  row = _bound_row(ms, plain_ms, None, max(by_class.values()), nbytes)
+  row['ops_ms_by_class'] = by_class
+  row['substeps_run'] = substeps
+  return row
+
+
+def time_b5(gp_state, xs, ys, ts) -> dict:
+  """B5 at the batch of `gp_state` and the 181 feature levels, each env's
+  column at its (x, y, t). The library yardstick: one batched float32
+  matmul of k* by kinv, its dominant term (never called by the port)."""
+  from ble_tpu_torch.ops import gp_query
+  from ble_tpu_torch.ops import gp_window
+  args = gp_query.pack(gp_state, xs, ys, ts, gp_window.pressure_levels(DEV))
+  n = xs.shape[0]
+  ms = cuda_ms(lambda: gp_query.launch(*args), reps=20)
+  plain_ms = cuda_ms(lambda: gp_query.query_plain(*args), reps=5)
+  k_star = torch.rand((n, 181, 128), device=DEV)
+  kinv = args[3]
+  library_ms = cuda_ms(lambda: torch.bmm(k_star, kinv), reps=20)
+  return _bound_row(ms, plain_ms, library_ms,
+                    1e3 * n * query_ops(181) / PEAK_F32_FLOPS,
+                    query_bytes(n, 181))
+
+
+def phase_timing(params, state, gp_state, gym_state) -> dict:
+  """Each kernel at the batch of the path its launches are counted on:
+  B1 and B2 at E = 4096 (main); B1 and B5 on the gym run's final state
+  and B3 on a GP state warmed past the ring, E = 1 (gym); B4 and B5 at
+  E = 4096 (pair)."""
+  from ble_tpu_torch.ops import gp_window
+  out = {'physics': time_b1(params, state)}
+  if gym_state is not None:
+    b = gym_state.balloon
+    out['physics_gym'] = time_b1(params, gym_state)
+    out['gp_query_gym'] = time_b5(gym_state.gp, b.x_m, b.y_m,
+                                  b.time_elapsed_s)
 
   obs = gp_obs_seq(2, 1, E, t0_step=140)
   f32 = lambda a: a.to(torch.float32).contiguous()
@@ -553,6 +889,29 @@ def phase_timing(params, state, gp_state) -> dict:
   out['gp_window'] = _bound_row(ms, plain_ms, library_ms,
                                 1e3 * b2_ops(obs) / PEAK_F32_FLOPS,
                                 b2_bytes(obs))
+
+  # B3 (E = 1) and B4 (E = 4096): the observe alone. The library yardstick
+  # is one batched float32 baddbmm of its rank-8 update, kinv + (W c) W^T,
+  # its only full read and write of kinv (never called by the port).
+  from ble_tpu_torch.ops import gp_observe
+  state1, obs1 = gp_track_state(1, 140, seed=5)
+  for name, st, ob in (('gp_observe_b3', state1, obs1),
+                       ('gp_observe_b4', gp_state, obs[0])):
+    n = ob.shape[0]
+    args = (ob, f32(st.locations), f32(st.errors), f32(st.active),
+            f32(st.kinv), f32(st.alpha), st.count.to(torch.int32).contiguous())
+    ms = cuda_ms(lambda: gp_observe.launch(*args), reps=50)
+    plain_ms = cuda_ms(lambda: gp_observe.observe_plain(st, ob), reps=5)
+    w = torch.rand((n, 128, 8), device=DEV)
+    library_ms = cuda_ms(lambda: torch.baddbmm(st.kinv, w, w.transpose(1, 2)),
+                         reps=20)
+    enabled = float((ob[:, 6] > 0.5).sum())
+    out[name] = _bound_row(ms, plain_ms, library_ms,
+                           1e3 * enabled * OBSERVE_OPS / PEAK_F32_FLOPS,
+                           observe_bytes(n))
+
+  out['gp_query_pair'] = time_b5(gp_state, obs[0, :, 0], obs[0, :, 1],
+                                 obs[0, :, 3])
   return out
 
 
@@ -606,38 +965,32 @@ def _step_ranges():
       setattr(module, name, fn)
 
 
-def phase_profile(params, state0, obs0) -> None:
+def phase_profile(params, field_fn, state0, obs0) -> None:
   """torch.profiler over 16 main-path steps, after an unprofiled run of
   the same 16 steps that gives the step's wall time without the
   profiler's overhead."""
   from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
   from ble_tpu_torch.train import eval_lib
-  from ble_tpu_torch.env import wind_field
   steps = 16
-  run = eval_lib.build_eval_fn(params, wind_field.simple_static_field(),
-                               *policy(), max_steps=steps, from_states=True,
+  run = eval_lib.build_eval_fn(params, field_fn, *policy(),
+                               max_steps=steps, from_states=True,
                                device=DEV)
-  run(list(range(E)), state0, obs0)
-  torch.cuda.synchronize()
-  t = time.perf_counter()
-  run(list(range(E)), state0, obs0)
-  torch.cuda.synchronize()
-  wall_ms = 1e3 * (time.perf_counter() - t) / steps
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof, _step_ranges():
+
+  def steps_run():
     run(list(range(E)), state0, obs0)
     torch.cuda.synchronize()
-  events = prof.key_averages()
+
+  steps_run()
+  t = time.perf_counter()
+  steps_run()
+  wall_ms = 1e3 * (time.perf_counter() - t) / steps
+  with _step_ranges():
+    device_ms, launches, events = device_time(steps_run, steps)
   ranges = {e.key: e.cpu_time_total / 1e3 / steps for e in events
             if e.key.startswith('step/') and e.device_type == DeviceType.CPU}
   log('profile: host ms per step by part, nested parts inside their '
       'callers (profiled):',
       json.dumps({k: round(v, 2) for k, v in sorted(ranges.items())}))
-  kernels = [e for e in events
-             if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-  device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-  launches = sum(e.count for e in kernels) / steps
   log(f'profile: per step {wall_ms:.2f} ms wall (unprofiled), '
       f'{device_ms:.2f} ms of device kernels in {launches:.0f} launches; '
       f'device busy share {device_ms / wall_ms:.3f}')
@@ -663,8 +1016,6 @@ def main(argv=None) -> int:
     return 1
   import ble_tpu_torch  # noqa: F401  (sets the float32 precision policy)
   from ble_tpu_torch.env import env as env_lib
-  from ble_tpu_torch.ops import gp_window
-  from ble_tpu_torch.ops import physics
 
   smi = nvidia_smi_line()
   kind = torch.cuda.get_device_name(0)
@@ -674,9 +1025,11 @@ def main(argv=None) -> int:
     phase_build()
 
   params = env_lib.EnvParams(field_cache=True)
-  state0 = obs0 = gp_state = None
+  field_fn = state0 = obs0 = gp_state = None
+  if phases & {'kernels', 'pair', 'main', 'timing', 'numerics', 'profile'}:
+    field_fn = generative_field_fn()
   if phases & {'kernels', 'main', 'timing', 'numerics', 'profile'}:
-    state0, obs0 = reset_main(params)
+    state0, obs0 = reset_main(params, field_fn)
   errs = {}
   if phases & {'kernels', 'timing'}:
     t = time.perf_counter()
@@ -690,32 +1043,58 @@ def main(argv=None) -> int:
     e8 = check_b2(gp_state, 8)
     errs['gp_window'] = {'max_abs_err': max(e1['max_abs_err'],
                                             e8['max_abs_err'])}
+    errs.update(check_b3_b4_b5(gp_state))
   if 'numerics' in phases:
     phase_numerics(params, state0)
   if 'calibrate' in phases:
     phase_calibrate()
   if 'reference' in phases:
     phase_reference()
+  # Launches of each kernel on each path that carries it, each path driven
+  # with every count set to 0 just before it and read just after: B1, B3
+  # and B5 on the gym path (E = 1), B4 and B5 on the pair path, B1 and B2
+  # on the main path (E = 4096).
+  launches = {}
+  gym_state = None
+  if 'gym' in phases:
+    gym_launches, gym_state = phase_gym()
+    launches.update(gym_launches)
+    if 'kernels' in phases:
+      errs['physics_gym'] = check_b1(params, gym_state)
+  if 'pair' in phases:
+    launches.update(phase_pair(field_fn))
   main_out = None
   if 'main' in phases:
-    main_out = phase_main(params, state0, obs0)
+    main_out = phase_main(params, field_fn, state0, obs0)
+    launches.update(main_out['launches'])
   timing = {}
   if 'timing' in phases:
-    timing = phase_timing(params, state0, gp_state)
+    timing = phase_timing(params, state0, gp_state, gym_state)
   if 'profile' in phases:
-    phase_profile(params, state0, obs0)
+    phase_profile(params, field_fn, state0, obs0)
 
+  # One row per kernel and path: its launches and its time both come from
+  # the path named in `path`, at that path's batch.
   rows = []
+  b1 = ('ble_tpu_torch/csrc/physics.cu', 'ble_tpu/ops/pallas_physics.py:184')
+  b5 = ('ble_tpu_torch/csrc/gp_query.cu', 'ble_tpu/ops/pallas_gp.py:95')
   sources = {
-      'physics': ('ble_tpu_torch/csrc/physics.cu',
-                  'ble_tpu/ops/pallas_physics.py:184'),
+      'physics': b1 + (f'main, E={E}',),
+      'physics_gym': b1 + ('gym, E=1',),
       'gp_window': ('ble_tpu_torch/csrc/gp_window.cu',
-                    'ble_tpu/ops/pallas_gp_window.py:360'),
+                    'ble_tpu/ops/pallas_gp_window.py:360', f'main, E={E}'),
+      'gp_observe_b3': ('ble_tpu_torch/csrc/gp_observe.cu',
+                        'ble_tpu/ops/pallas_gp_observe.py:265', 'gym, E=1'),
+      'gp_observe_b4': ('ble_tpu_torch/csrc/gp_observe.cu',
+                        'ble_tpu/ops/pallas_gp_observe.py:326',
+                        f'pair, E={E}'),
+      'gp_query_gym': b5 + ('gym, E=1',),
+      'gp_query_pair': b5 + (f'pair, E={E}',),
   }
-  for name, (source, replaces) in sources.items():
+  for name, (source, replaces, path) in sources.items():
     row = {'name': name, 'route': 'cuda', 'source': source,
-           'replaces': replaces,
-           'launches': main_out['launches'][name] if main_out else None,
+           'replaces': replaces, 'path': path,
+           'launches': launches.get(name),
            'max_abs_err': errs.get(name, {}).get('max_abs_err')}
     t = timing.get(name, {})
     for key in ('ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms'):
@@ -723,7 +1102,7 @@ def main(argv=None) -> int:
     rows.append(row)
     if t:
       log(f'timing {name}: {json.dumps(t)}')
-      if main_out:
+      if main_out and name in main_out['launches']:
         share = t['ms'] * main_out['launches'][name] / MAIN_STEPS
         log(f'  {name}: {share:.3f} ms of each {main_out["per_step_ms"]:.3f}'
             f' ms main-path step')

@@ -22,7 +22,6 @@ from ble_tpu_torch import bridge
 from ble_tpu_torch.agents import station_seeker
 from ble_tpu_torch.env import env as env_lib
 from ble_tpu_torch.env import features
-from ble_tpu_torch.env import wind_field
 from ble_tpu_torch.env import wind_gp
 from ble_tpu_torch.train import eval_lib
 
@@ -228,7 +227,7 @@ def test_tiny_eval_twr_matches_jax():
   want = jax.tree.map(np.asarray, jfn(jnp.asarray(seeds), states, obs))
   fn = eval_lib.build_eval_fn(
       env_lib.EnvParams(wind_field_f32=True, field_cache=True),
-      wind_field.simple_static_field(), lambda n, g: (),
+      env_lib.make_field_fn('static'), lambda n, g: (),
       lambda st, o, g: (st, station_seeker.pick_action(o)), max_steps=960,
       from_states=True, device='cpu')
   got = fn(seeds, _to_port(states), torch.from_numpy(np.array(obs)))

@@ -15,9 +15,13 @@ import ble_tpu_torch
 from ble_tpu_torch.agents import station_seeker
 from ble_tpu_torch.env import balloon
 from ble_tpu_torch.env import env as env_lib
+from ble_tpu_torch.env import gym_env
 from ble_tpu_torch.env import wind_field
 from ble_tpu_torch.env import wind_gp
+from ble_tpu_torch.models import loader
 from ble_tpu_torch.ops import cuda_build
+from ble_tpu_torch.ops import gp_observe
+from ble_tpu_torch.ops import gp_query
 from ble_tpu_torch.ops import gp_window
 from ble_tpu_torch.ops import physics
 from ble_tpu_torch.train import eval as eval_cli
@@ -96,20 +100,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
   with pytest.raises(RuntimeError, match='CUDA'):
     env_lib.reset_from_field(env_lib.EnvParams(),
                              wind_field.simple_static_field(), [0])
+  with pytest.raises(RuntimeError, match='CUDA'):
+    env_lib.reset(env_lib.EnvParams(), [0], env_lib.make_field_fn('static'))
   policy = (lambda n, g: (),
             lambda st, obs, g: (st, station_seeker.pick_action(obs)))
   with pytest.raises(RuntimeError, match='CUDA'):
     eval_lib.build_eval_fn(env_lib.EnvParams(),
-                           wind_field.simple_static_field(), *policy)
+                           env_lib.make_field_fn('static'), *policy)
   with pytest.raises(RuntimeError, match='CUDA'):
     eval_cli.main(['--suite', 'micro_eval'])
+  with pytest.raises(RuntimeError, match='CUDA'):
+    loader.load_offlineskies22()
+  with pytest.raises(RuntimeError, match='CUDA'):
+    gym_env.BalloonEnv(wind_field='static')
   # Asked for explicitly, the CPU is used.
   assert ble_tpu_torch.resolve_device('cpu') == torch.device('cpu')
-
-
-def test_generative_field_is_not_ported_yet():
-  with pytest.raises(NotImplementedError, match='A9'):
-    eval_cli.main(['--wind_field', 'generative', '--device', 'cpu'])
 
 
 def test_kernel_launchers_refuse_cpu_tensors():
@@ -127,8 +132,17 @@ def test_kernel_launchers_refuse_cpu_tensors():
                    torch.zeros(n, dtype=torch.int32), f32.clone(),
                    i32.clone(), 18, 10,
                    physics.uniform_params(balloon.BalloonParams()))
+  with pytest.raises(ValueError, match='obs'):
+    gp_observe.launch(obs[0], gp.locations, gp.errors,
+                      gp.active.to(torch.float32), gp.kinv, gp.alpha,
+                      gp.count)
+  with pytest.raises(ValueError, match='locations'):
+    gp_query.launch(gp.locations, gp.active.to(torch.float32), gp.alpha,
+                    gp.kinv, torch.zeros((n, 4)), torch.zeros(181))
   assert gp_window.launch.launches == 0
   assert physics.launch.launches == 0
+  assert gp_observe.launch.launches == 0
+  assert gp_query.launch.launches == 0
 
 
 def test_fused_physics_refuses_per_env_params():
@@ -140,7 +154,8 @@ def test_fused_physics_refuses_per_env_params():
 
 
 def test_build_names_each_source_for_sm_90a():
-  assert set(cuda_build.SOURCES) == {'physics', 'gp_window'}
+  assert set(cuda_build.SOURCES) == {'physics', 'gp_window', 'gp_observe',
+                                     'gp_query'}
   assert 'arch=compute_90a,code=sm_90a' in cuda_build._COMMON_FLAGS
   assert '--use_fast_math' not in cuda_build._COMMON_FLAGS
   for name in cuda_build.SOURCES:

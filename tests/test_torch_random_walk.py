@@ -1,0 +1,122 @@
+"""The port's random-walk and random agents (ble_tpu_torch/agents/
+random_walk.py) against ble_tpu.agents.random_walk on the same inputs:
+select_action on the same targets and observations, inside and outside the
+100 Pa hysteresis band; step's target drift with the same normal draw
+given to both; init's target range and the random agent's actions."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from ble_tpu.agents import base as jax_base
+from ble_tpu.agents import random_walk as jax_rw
+from ble_tpu_torch.agents import base
+from ble_tpu_torch.agents import random_walk
+from ble_tpu_torch.utils import constants
+
+OBS_DIM = 1099
+P_MIN = constants.PERCIATELLI_PRESSURE_RANGE_MIN
+P_MAX = constants.PERCIATELLI_PRESSURE_RANGE_MAX
+
+
+def _obs(rng, pressures):
+  """(E, 1099) float32 observations: uniform features, feature 0 the
+  rescaled balloon pressure."""
+  obs = rng.uniform(0.0, 1.0, (len(pressures), OBS_DIM)).astype(np.float32)
+  obs[:, 0] = (np.asarray(pressures) - P_MIN) / (P_MAX - P_MIN)
+  return obs
+
+
+def _jax_select(targets, elapsed, obs):
+  state = jax_rw.RandomWalkState(target_pressure=jnp.asarray(targets),
+                                 time_elapsed_s=jnp.asarray(elapsed))
+  return np.asarray(jax.vmap(jax_rw.select_action)(state, jnp.asarray(obs)))
+
+
+def test_select_action_matches_jax_around_the_hysteresis_band():
+  """Pressures at offsets from the target on both sides of +-100 Pa, and
+  far outside it: UP, STAY and DOWN exactly as ble_tpu picks them."""
+  rng = np.random.RandomState(0)
+  offsets = np.array([-400.0, -101.0, -99.0, -50.0, 0.0, 50.0, 99.0, 101.0,
+                      400.0] * 8, np.float32)
+  targets = rng.uniform(6500.0, 11400.0, offsets.shape).astype(np.float32)
+  elapsed = np.zeros_like(targets)
+  obs = _obs(rng, targets + offsets)
+  want = _jax_select(targets, elapsed, obs)
+  state = random_walk.RandomWalkState(
+      target_pressure=torch.from_numpy(targets),
+      time_elapsed_s=torch.from_numpy(elapsed))
+  got = random_walk.select_action(state, torch.from_numpy(obs))
+  assert got.dtype == torch.int32
+  np.testing.assert_array_equal(got.numpy(), want)
+  assert set(want.tolist()) == {0, 1, 2}
+
+
+def test_step_drift_matches_jax_with_the_same_draw(monkeypatch):
+  """Eight steps over 64 envs: the port's step draws its normal from the
+  generator; ble_tpu's step is given that same draw in place of
+  jax.random.normal. Targets within 1e-3 Pa, elapsed time and actions
+  equal."""
+  rng = np.random.RandomState(1)
+  n = 64
+  gen = torch.Generator().manual_seed(0)
+  state = random_walk.init(n, gen)
+  jstate = jax_rw.RandomWalkState(
+      target_pressure=jnp.asarray(state.target_pressure.numpy()),
+      time_elapsed_s=jnp.zeros((n,), jnp.float32))
+  monkeypatch.setattr(jax.random, 'normal', lambda draw: draw)
+  jstep = jax.vmap(jax_rw.step)
+  for t in range(8):
+    draw = torch.randn((n,), generator=torch.Generator().set_state(
+        gen.get_state()))
+    obs = _obs(rng, rng.uniform(6000.0, 12000.0, n))
+    state, actions = random_walk.step(state, torch.from_numpy(obs), gen)
+    jstate, jactions = jstep(jstate, jnp.asarray(obs),
+                             jnp.asarray(draw.numpy()))
+    np.testing.assert_allclose(state.target_pressure.numpy(),
+                               np.asarray(jstate.target_pressure), atol=1e-3,
+                               err_msg=f'step {t}')
+    np.testing.assert_array_equal(state.time_elapsed_s.numpy(),
+                                  np.asarray(jstate.time_elapsed_s))
+    np.testing.assert_array_equal(actions.numpy(), np.asarray(jactions))
+  assert float(state.time_elapsed_s[0]) == 8 * 180.0
+
+
+def test_init_range_matches_jax():
+  """Fresh targets of both packages over 4096 draws: inside
+  [6500, 11400), reaching within 100 Pa of each end, mean within 80 Pa of
+  the middle."""
+  n = 4096
+  got = random_walk.init(n, torch.Generator().manual_seed(0))
+  keys = jax.random.split(jax.random.PRNGKey(0), n)
+  want = jax.vmap(jax_rw.init)(keys)
+  assert bool((got.time_elapsed_s == 0).all())
+  np.testing.assert_array_equal(np.asarray(want.time_elapsed_s), 0.0)
+  for targets in (got.target_pressure.numpy(),
+                  np.asarray(want.target_pressure)):
+    assert targets.min() >= 6500.0 and targets.max() < 11400.0
+    assert targets.min() < 6600.0 and targets.max() > 11300.0
+    assert abs(targets.mean() - 8950.0) < 80.0
+
+
+def test_random_agents_act_like_jax():
+  """The random agent's actions span {0, 1, 2} in both packages; the
+  random-walk agent advances its clock by one agent step a step in both."""
+  rng = np.random.RandomState(2)
+  obs = _obs(rng, [9000.0])[0]
+  actions = {}
+  for name, pkg in (('port', base), ('jax', jax_base)):
+    agent = pkg.create_agent('random', num_actions=3,
+                             observation_shape=(OBS_DIM,), seed=0)
+    seen = [agent.begin_episode(obs)] + [agent.step(0.0, obs)
+                                         for _ in range(99)]
+    actions[name] = set(seen)
+    walker = pkg.create_agent('random_walk', num_actions=3,
+                              observation_shape=(OBS_DIM,), seed=0)
+    assert walker.begin_episode(obs) in (0, 1, 2)
+    for _ in range(3):
+      assert walker.step(0.0, obs) in (0, 1, 2)
+    elapsed = np.asarray(walker._state.time_elapsed_s)
+    np.testing.assert_array_equal(elapsed.reshape(-1), [3 * 180.0])
+  assert actions['port'] == actions['jax'] == {0, 1, 2}
