@@ -1,8 +1,9 @@
-// What the three GP kernels share: the GP's constants, and for
+// What the three GP kernels share: the GP's constants, the padded layout
+// of kinv in shared memory and its asynchronous staging, and for
 // csrc/gp_window.cu (B2, observe + query per step) and csrc/gp_observe.cu
 // (B3/B4, observe only) the load and store of one env's state to and from
-// shared memory and the observe on it. csrc/gp_query.cu (B5) takes the
-// constants.
+// shared memory and the observe on it. csrc/gp_query_core.cuh, the query
+// engine of B2 and B5, builds on it.
 //
 // The observe is the TPU kernels' _observe_core + _finish
 // (ble_tpu/ops/pallas_gp_window.py, ble_tpu/ops/pallas_gp_observe.py): two
@@ -25,9 +26,13 @@ namespace ble_gp {
 
 constexpr int kCap = 128;
 constexpr int kThreads = 256;
-// Rows of kinv padded to 129 floats: row and column walks are both free of
-// bank conflicts.
-constexpr int kKinvStride = kCap + 1;
+// Rows of kinv padded to 132 floats, 33 16-byte chunks: every read of kinv
+// is a 16-byte load along a row. A warp reading the same 4 columns of 32
+// consecutive rows touches 8 distinct chunks mod 8 in each quarter-warp
+// (33 is odd), and a warp reading 8 consecutive chunks of one row takes one
+// wavefront: both free of bank conflicts. Scalar walks down a column are
+// not (4-way), and nothing here makes them.
+constexpr int kKinvStride = kCap + 4;
 
 constexpr double kSigmaF2 = 3.6 * 3.6;
 constexpr double kSigmaN2 = 0.05;
@@ -35,11 +40,39 @@ constexpr double kTimeHorizonS = 6.0 * 3600.0;
 constexpr double kLsX = 357000.0, kLsY = 357000.0, kLsP = 326.0,
                  kLsT = 34560.0;
 
-// Scratch the observe needs, in floats: U (CAP, 4) | M (CAP, 4) | W (CAP, 8).
-constexpr int kObserveScratchFloats = kCap * 16;
+// Scratch the observe needs, in floats: U (CAP, 4) | M (CAP, 4) | W (CAP, 8)
+// | W c (CAP, 8).
+constexpr int kObserveScratchFloats = kCap * 24;
 // Small area: S (16) | c (8) | coefficients a[q][j] (16) | stale words (4).
 constexpr int kSmallFloats = 64;
 constexpr int kSmallS = 0, kSmallC = 16, kSmallA = 24, kSmallWords = 40;
+
+// 16-byte asynchronous copy from device to shared memory (cp.async, no
+// register round trip), and the waits that complete it. A thread's copies
+// are visible to the block after it waits and the block synchronises.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Starts the copy of one env's 128x128 inverse (`src`, dense rows) into
+// `kinv` (padded rows): 16 cp.async of 16 bytes a thread, one group. The
+// caller runs cp_async_wait_all() and synchronises before reading kinv.
+__device__ __forceinline__ void stage_kinv(float* kinv,
+                                           const float* __restrict__ src) {
+  for (int i = threadIdx.x; i < kCap * kCap / 4; i += kThreads) {
+    const int r = i / (kCap / 4), c = (i % (kCap / 4)) * 4;
+    cp_async16(kinv + r * kKinvStride + c, src + i * 4);
+  }
+  cp_async_commit();
+}
 
 // The state in shared memory; kinv has kCap rows of kKinvStride floats.
 struct State {
@@ -50,21 +83,17 @@ struct State {
   float* alpha;  // (CAP, 2)
 };
 
-// Env e's state from device memory into shared memory. The caller
-// synchronises before using it.
+// Env e's state from device memory into shared memory: kinv by cp.async,
+// still in flight on return (observe_step waits for it just before its
+// first read of kinv, so the stale-slot search and U overlap the copy),
+// the small tables by plain loads. The caller synchronises before using
+// them.
 __device__ __forceinline__ void load_state(
     const State& s, int e, const float* __restrict__ loc_in,
     const float* __restrict__ err_in, const float* __restrict__ act_in,
     const float* __restrict__ kinv_in, const float* __restrict__ alpha_in) {
   const int tid = threadIdx.x;
-  const float4* src =
-      reinterpret_cast<const float4*>(kinv_in + (size_t)e * kCap * kCap);
-  for (int i = tid; i < kCap * kCap / 4; i += kThreads) {
-    float4 q = src[i];
-    int r = (i * 4) / kCap, c = (i * 4) % kCap;
-    float* dst = s.kinv + r * kKinvStride + c;
-    dst[0] = q.x; dst[1] = q.y; dst[2] = q.z; dst[3] = q.w;
-  }
+  stage_kinv(s.kinv, kinv_in + (size_t)e * kCap * kCap);
   for (int i = tid; i < kCap * 4; i += kThreads)
     s.loc[i] = loc_in[(size_t)e * kCap * 4 + i];
   for (int i = tid; i < kCap * 2; i += kThreads) {
@@ -84,9 +113,8 @@ __device__ __forceinline__ void store_state(
   const int tid = threadIdx.x;
   float4* dst = reinterpret_cast<float4*>(kinv_out + (size_t)e * kCap * kCap);
   for (int i = tid; i < kCap * kCap / 4; i += kThreads) {
-    int r = (i * 4) / kCap, c = (i * 4) % kCap;
-    const float* src = s.kinv + r * kKinvStride + c;
-    dst[i] = make_float4(src[0], src[1], src[2], src[3]);
+    const int r = i / (kCap / 4), c = (i % (kCap / 4)) * 4;
+    dst[i] = *reinterpret_cast<const float4*>(s.kinv + r * kKinvStride + c);
   }
   for (int i = tid; i < kCap * 4; i += kThreads)
     loc_out[(size_t)e * kCap * 4 + i] = s.loc[i];
@@ -101,8 +129,9 @@ __device__ __forceinline__ void store_state(
 // One observation [x, y, p, t, eu, ev] into the state; `count` is the
 // number of observations ever written and advances when `enabled`.
 // `scratch` holds kObserveScratchFloats and `small` kSmallFloats floats.
-// Starts with the state synchronised; ends with alpha written but not
-// synchronised, so the caller synchronises before reading alpha.
+// Starts with the state synchronised but kinv possibly still in flight
+// from load_state; ends with alpha written but not synchronised, so the
+// caller synchronises before reading alpha.
 __device__ __forceinline__ void observe_step(
     const State& s, float* scratch, float* small, int& count, float x,
     float y, float p, float t, float eu, float ev, bool enabled) {
@@ -114,6 +143,7 @@ __device__ __forceinline__ void observe_step(
   float* u_mat = scratch;               // (CAP, 4)
   float* m_mat = scratch + kCap * 4;    // (CAP, 4)
   float* w_mat = scratch + kCap * 8;    // (CAP, 8)
+  float* wc_mat = scratch + kCap * 16;  // (CAP, 8): W scaled by c
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -170,17 +200,26 @@ __device__ __forceinline__ void observe_step(
     u_mat[i * 4 + 2] = eo;
     u_mat[i * 4 + 3] = v;
   }
+  cp_async_wait_all();
   __syncthreads();
 
-  // M = kinv U: thread -> (row tid % CAP, columns 2 * (tid / CAP) + {0, 1}).
+  // M = kinv U: thread -> (row tid % CAP, columns 2 * (tid / CAP) + {0, 1}),
+  // the row walked 16 bytes at a time.
   {
     const int i = tid % kCap, j0 = 2 * (tid / kCap);
-    const float* row = kinv + i * kKinvStride;
+    const float4* row = reinterpret_cast<const float4*>(kinv + i * kKinvStride);
     float m0 = 0.0f, m1 = 0.0f;
-    for (int kk = 0; kk < kCap; ++kk) {
-      float a = row[kk];
-      m0 += a * u_mat[kk * 4 + j0];
-      m1 += a * u_mat[kk * 4 + j0 + 1];
+    for (int k4 = 0; k4 < kCap / 4; ++k4) {
+      const float4 a = row[k4];
+      const float* u = u_mat + k4 * 16 + j0;
+      m0 += a.x * u[0];
+      m1 += a.x * u[1];
+      m0 += a.y * u[4];
+      m1 += a.y * u[5];
+      m0 += a.z * u[8];
+      m1 += a.z * u[9];
+      m0 += a.w * u[12];
+      m1 += a.w * u[13];
     }
     m_mat[i * 4 + j0] = m0;
     m_mat[i * 4 + j0 + 1] = m1;
@@ -260,20 +299,33 @@ __device__ __forceinline__ void observe_step(
     wr[5] = u_mat[i * 4 + 2];
     wr[6] = w[3] - slot_e;
     wr[7] = slot_e;
+    const float* c = small + kSmallC;
+    float4* wc = reinterpret_cast<float4*>(wc_mat + i * 8);
+    wc[0] = make_float4(wr[0] * c[0], wr[1] * c[1], wr[2] * c[2],
+                        wr[3] * c[3]);
+    wc[1] = make_float4(wr[4] * c[4], wr[5] * c[5], wr[6] * c[6],
+                        wr[7] * c[7]);
   }
   __syncthreads();
 
   if (enabled) {
     // Rank-8 update kinv += (W c) W^T: column j = tid % CAP, rows of one
-    // parity, W[j, :] kept in registers.
+    // parity, W[j, :] kept in registers, row i of W c read as two 16-byte
+    // broadcasts.
     const int j = tid % kCap;
-    const float* c = small + kSmallC;
     float wj[8];
     for (int r = 0; r < 8; ++r) wj[r] = w_mat[j * 8 + r];
     for (int i = tid / kCap; i < kCap; i += kThreads / kCap) {
-      const float* wi = w_mat + i * 8;
-      float acc = 0.0f;
-      for (int r = 0; r < 8; ++r) acc += (wi[r] * c[r]) * wj[r];
+      const float4 a = reinterpret_cast<const float4*>(wc_mat + i * 8)[0];
+      const float4 b = reinterpret_cast<const float4*>(wc_mat + i * 8)[1];
+      float acc = a.x * wj[0];
+      acc += a.y * wj[1];
+      acc += a.z * wj[2];
+      acc += a.w * wj[3];
+      acc += b.x * wj[4];
+      acc += b.y * wj[5];
+      acc += b.z * wj[6];
+      acc += b.w * wj[7];
       kinv[i * kKinvStride + j] += acc;
     }
     if (tid < kCap) act[tid] = act_final_i;
@@ -286,12 +338,19 @@ __device__ __forceinline__ void observe_step(
   __syncthreads();
 
   if (enabled) {
-    // alpha = kinv' (errors * active): thread -> (row tid % CAP, comp).
+    // alpha = kinv' (errors * active): thread -> (row tid % CAP, comp),
+    // the row walked 16 bytes at a time.
     const int i = tid % kCap, comp = tid / kCap;
-    const float* row = kinv + i * kKinvStride;
+    const float4* row = reinterpret_cast<const float4*>(kinv + i * kKinvStride);
     float acc = 0.0f;
-    for (int kk = 0; kk < kCap; ++kk)
-      acc += row[kk] * (err[kk * 2 + comp] * act[kk]);
+    for (int k4 = 0; k4 < kCap / 4; ++k4) {
+      const float4 a = row[k4];
+      const int kk = k4 * 4;
+      acc += a.x * (err[kk * 2 + comp] * act[kk]);
+      acc += a.y * (err[kk * 2 + 2 + comp] * act[kk + 1]);
+      acc += a.z * (err[kk * 2 + 4 + comp] * act[kk + 2]);
+      acc += a.w * (err[kk * 2 + 6 + comp] * act[kk + 3]);
+    }
     alpha[i * 2 + comp] = acc;
   }
 }

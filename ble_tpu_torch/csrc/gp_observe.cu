@@ -10,10 +10,12 @@
 //
 // Design: one CTA of 256 threads per env, whatever the batch: B3 is E = 1
 // and B4 any E (the TPU's 8-env blocking amortised per-program DMA setup,
-// which a CTA does not pay). The env's 128x128 float32 inverse is read once
-// into dynamic shared memory with padded rows, updated there by
-// gp_core.cuh (the same code as B2's observe phase), and written
-// back once. All arithmetic is float32 on the CUDA cores.
+// which a CTA does not pay). The env's 128x128 float32 inverse is staged
+// once by cp.async into dynamic shared memory, in rows padded to 132 floats
+// (the stale-slot search and U overlap the copy), updated there by
+// gp_core.cuh (the same code as B2's observe phase, walking kinv's rows 16
+// bytes at a time), and written back once. All arithmetic is float32 on
+// the CUDA cores.
 //
 // Bound, per env: ~137 KiB of traffic (kinv in and out, plus the small
 // tables) against ~0.47 MFLOP, so at E = 4096 it is memory-bound
@@ -51,7 +53,7 @@ gp_observe_kernel(const float* __restrict__ obs,
                   float* __restrict__ err_out, float* __restrict__ act_out,
                   float* __restrict__ kinv_out, float* __restrict__ alpha_out,
                   int* __restrict__ cnt_out) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const State s{smem + kOffKinv, smem + kOffLoc, smem + kOffErr,
                 smem + kOffAct, smem + kOffAlpha};
   const int e = blockIdx.x;
@@ -90,4 +92,16 @@ extern "C" int ble_gp_observe(const float* obs, const float* loc_in,
         err_out, act_out, kinv_out, alpha_out, cnt_out);
   }
   return (int)cudaGetLastError();
+}
+
+// The kernel's dynamic shared memory in bytes and its resident CTAs per SM,
+// as info[0] and info[1]. Returns the first CUDA error.
+extern "C" int ble_gp_observe_info(int* info) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gp_observe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = kSmemBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[1], gp_observe_kernel, kThreads, kSmemBytes);
 }

@@ -7,42 +7,40 @@
 // dev = clip((s_f^2 - sum_a k*[l, a] v[l, a]) / s_f^2, 0, 1); both are zero
 // for an env with no active slot.
 //
-// Design: one CTA of 256 threads per env. The env's 128x128 float32 inverse
-// is read once into dynamic shared memory (rows padded to 129 floats). The
-// x/y/t part of the distance is built once as a (128,) vector, as the TPU
-// kernel does; k* is then built 64 levels at a time in shared memory, the
-// ragged last chunk masked (N is an input), and v = k* kinv is formed with
-// an 8x4 register tile per thread in full float32 on the CUDA cores: no
-// TF32 and no tensor cores, because the variance cancels operands of ~13
-// down to s_n^2 = 0.05 (ble_tpu/env/wind_gp.py:36-44).
-//
-// Bound, per env at N = 181: ~6.1 MFLOP, dominated by v = k* kinv at
+// Bound, per env at N = 181: ~6.3 MFLOP, dominated by v = k* kinv at
 // 2 x 181 x 128 x 128, against ~71 KiB of traffic (kinv in, the levels
-// out); at 4096 envs that is ~25 GFLOP (0.37 ms at 67 TFLOP/s) and ~290 MB
-// (0.09 ms at 3.35 TB/s): compute-bound on the float32 CUDA cores.
+// out); at 4096 envs ~25.6 GFLOP (0.38 ms at 67 TFLOP/s) against ~290 MB
+// (0.09 ms at 3.35 TB/s): compute-bound on the float32 CUDA cores. At one
+// env the same 6.3 MFLOP is a few microseconds of one SM: latency-bound.
+//
+// Design: a grid of (E, S) CTAs of 256 threads; CTA (e, s) computes the
+// s-th contiguous slice of env e's levels (gp_query_core.cuh:slice_levels)
+// with the shared query engine, gp_query_core.cuh:query_levels, which also
+// serves B2. The wrapper (ops/gp_query.py:level_split) picks S from E, N
+// and the card's SM count: S = 1 when the envs alone fill the card, and up
+// to one slice per 16 levels when they do not (12 CTAs for one env at 181
+// levels, each reading the env's inverse from L2). Each CTA stages the
+// inverse with cp.async into rows padded to 132 floats and builds the
+// x/y/t distances while the copy flies. What the engine does about the
+// first kernel's scalar shared loads, synchronous kinv load, idle-half-
+// block side loops and ragged last chunk is in its header.
 
 #include <cuda_runtime.h>
 
 #include "gp_core.cuh"
+#include "gp_query_core.cuh"
 
 namespace {
 
 using namespace ble_gp;
 
-constexpr int kChunk = 64;
-constexpr int kRowGroups = 16;  // v tile: 16 slot groups x 16 level groups.
-constexpr int kTileRows = kCap / kRowGroups;  // 8
-constexpr int kTileCols = kChunk / 16;  // 4
-
-// Shared memory layout, in floats.
+// Shared memory layout, in floats (every offset a multiple of 4).
 constexpr int kOffKinv = 0;
-constexpr int kOffLoc = kOffKinv + kCap * kKinvStride;
-constexpr int kOffAct = kOffLoc + kCap * 4;
-constexpr int kOffAlpha = kOffAct + kCap;
-constexpr int kOffQc = kOffAlpha + kCap * 2;
-constexpr int kOffKstar = kOffQc + kCap;
-constexpr int kOffRed = kOffKstar + kCap * kChunk;
-constexpr int kSmemFloats = kOffRed + kRowGroups * kChunk;
+constexpr int kOffSlot = kOffKinv + kCap * kKinvStride;
+constexpr int kOffAlpha = kOffSlot + kCap * 4;
+constexpr int kOffKstar = kOffAlpha + kCap * 2;
+constexpr int kOffRed = kOffKstar + kKstarFloats;
+constexpr int kSmemFloats = kOffRed + kRedFloats;
 constexpr int kSmemBytes = kSmemFloats * 4;
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -52,140 +50,75 @@ gp_query_kernel(const float* __restrict__ loc_in,
                 const float* __restrict__ kinv_in,
                 const float* __restrict__ q_in,
                 const float* __restrict__ pres, float* __restrict__ out,
-                int n_levels) {
-  extern __shared__ float smem[];
+                int n_levels, int n_slices) {
+  extern __shared__ __align__(16) float smem[];
   float* kinv = smem + kOffKinv;
-  float* loc = smem + kOffLoc;
-  float* act = smem + kOffAct;
+  float4* slot = reinterpret_cast<float4*>(smem + kOffSlot);
   float* alpha = smem + kOffAlpha;
-  float* qc = smem + kOffQc;
-  float* kstar = smem + kOffKstar;  // (CAP, kChunk): slot-major.
-  float* red = smem + kOffRed;
 
   const int e = blockIdx.x;
+  const int per = slice_levels(n_levels, n_slices);
+  const int l_begin = blockIdx.y * per;
+  const int l_end = min(n_levels, l_begin + per);
+  if (l_begin >= l_end) return;
   const int tid = threadIdx.x;
-  const float sf2 = F(kSigmaF2);
 
-  {
-    const float4* src =
-        reinterpret_cast<const float4*>(kinv_in + (size_t)e * kCap * kCap);
-    for (int i = tid; i < kCap * kCap / 4; i += kThreads) {
-      float4 q = src[i];
-      int r = (i * 4) / kCap, c = (i * 4) % kCap;
-      float* dst = kinv + r * kKinvStride + c;
-      dst[0] = q.x; dst[1] = q.y; dst[2] = q.z; dst[3] = q.w;
-    }
-    for (int i = tid; i < kCap * 4; i += kThreads)
-      loc[i] = loc_in[(size_t)e * kCap * 4 + i];
-    for (int i = tid; i < kCap * 2; i += kThreads)
-      alpha[i] = alpha_in[(size_t)e * kCap * 2 + i];
-  }
+  stage_kinv(kinv, kinv_in + (size_t)e * kCap * kCap);
   // The x/y/t part of each slot's distance to the column, and the active
-  // mask (pallas_gp._kernel's lane vector c).
+  // mask (pallas_gp._kernel's lane vector c), while kinv is in flight.
+  bool active = false;
   if (tid < kCap) {
     const float* q = q_in + (size_t)e * 4;
-    const float* lo = loc_in + ((size_t)e * kCap + tid) * 4;
-    float dx = (q[0] - lo[0]) / F(kLsX);
-    float dy = (q[1] - lo[1]) / F(kLsY);
-    float dt = (q[2] - lo[3]) / F(kLsT);
-    qc[tid] = dx * dx + dy * dy + dt * dt + F(1e-12);
-    act[tid] = act_in[(size_t)e * kCap + tid];
+    const float4 lo =
+        reinterpret_cast<const float4*>(loc_in + (size_t)e * kCap * 4)[tid];
+    const float dx = (q[0] - lo.x) / F(kLsX);
+    const float dy = (q[1] - lo.y) / F(kLsY);
+    const float dt = (q[2] - lo.w) / F(kLsT);
+    const float a = act_in[(size_t)e * kCap + tid];
+    slot[tid] = make_float4(lo.z, dx * dx + dy * dy + dt * dt + F(1e-12), a,
+                            0.0f);
+    active = a > 0.0f;
+    reinterpret_cast<float2*>(alpha)[tid] =
+        reinterpret_cast<const float2*>(alpha_in + (size_t)e * kCap * 2)[tid];
   }
-  const float any_valid =
-      __syncthreads_or(tid < kCap && act_in[(size_t)e * kCap + tid] > 0.0f)
-          ? 1.0f : 0.0f;
+  const float any_valid = __syncthreads_or(active) ? 1.0f : 0.0f;
 
-  float* lvl = out + (size_t)e * n_levels * 3;
-  for (int l0 = 0; l0 < n_levels; l0 += kChunk) {
-    // k* chunk; levels past N are zero columns.
-    for (int idx = tid; idx < kCap * kChunk; idx += kThreads) {
-      const int a = idx / kChunk, l = l0 + idx % kChunk;
-      float ks = 0.0f;
-      if (l < n_levels) {
-        float dp = (pres[l] - loc[a * 4 + 2]) / F(kLsP);
-        float d = sqrtf(qc[a] + dp * dp);
-        ks = (sf2 * expf(-d)) * act[a];
-      }
-      kstar[idx] = ks;
-    }
-    __syncthreads();
-
-    if (tid < 2 * kChunk) {
-      const int jl = tid % kChunk, comp = tid / kChunk, l = l0 + jl;
-      if (l < n_levels) {
-        float acc = 0.0f;
-        for (int a = 0; a < kCap; ++a)
-          acc += kstar[a * kChunk + jl] * alpha[a * 2 + comp];
-        lvl[l * 3 + comp] = acc * any_valid;
-      }
-    }
-
-    // v[l, j] = sum_a k*[l, a] kinv[a, j] for slots j of this thread's row
-    // group and levels of its column group, then k*[l, j] v[l, j] summed
-    // over the group's slots.
-    {
-      const int rg = tid / 16, cg = tid % 16;
-      float acc[kTileRows][kTileCols];
-#pragma unroll
-      for (int i = 0; i < kTileRows; ++i)
-#pragma unroll
-        for (int jj = 0; jj < kTileCols; ++jj) acc[i][jj] = 0.0f;
-      for (int a = 0; a < kCap; ++a) {
-        float b[kTileCols];
-#pragma unroll
-        for (int jj = 0; jj < kTileCols; ++jj)
-          b[jj] = kstar[a * kChunk + cg + 16 * jj];
-        const float* krow = kinv + a * kKinvStride + rg * kTileRows;
-#pragma unroll
-        for (int i = 0; i < kTileRows; ++i) {
-          float k = krow[i];
-#pragma unroll
-          for (int jj = 0; jj < kTileCols; ++jj) acc[i][jj] += k * b[jj];
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < kTileCols; ++jj) {
-        const int col = cg + 16 * jj;
-        float part = 0.0f;
-#pragma unroll
-        for (int i = 0; i < kTileRows; ++i)
-          part += kstar[(rg * kTileRows + i) * kChunk + col] * acc[i][jj];
-        red[rg * kChunk + col] = part;
-      }
-    }
-    __syncthreads();
-
-    if (tid < kChunk) {
-      const int l = l0 + tid;
-      if (l < n_levels) {
-        float sum = 0.0f;
-        for (int g = 0; g < kRowGroups; ++g) sum += red[g * kChunk + tid];
-        float var = sf2 - sum;
-        float dev = fminf(fmaxf(var / sf2, 0.0f), 1.0f);
-        lvl[l * 3 + 2] = dev * any_valid;
-      }
-    }
-    __syncthreads();
-  }
+  query_levels(kinv, slot, alpha, pres, smem + kOffKstar,
+               smem + kOffRed, l_begin, l_end, any_valid,
+               out + (size_t)e * n_levels * 3);
 }
 
 }  // namespace
 
 // loc (n, 128, 4), act (n, 128) as 0/1 floats, alpha (n, 128, 2), kinv
 // (n, 128, 128), q (n, 4) = [x, y, t, 0], pres (n_levels,); out
-// (n, n_levels, 3) = [mean_u, mean_v, deviation]. Returns the first CUDA
-// error of the attribute call or the launch.
+// (n, n_levels, 3) = [mean_u, mean_v, deviation]. Each env's levels are
+// split into n_slices slices, one CTA each. Returns the first CUDA error
+// of the attribute call or the launch.
 extern "C" int ble_gp_query(const float* loc, const float* act,
                             const float* alpha, const float* kinv,
                             const float* q, const float* pres, float* out,
-                            int n, int n_levels, cudaStream_t stream) {
+                            int n, int n_levels, int n_slices,
+                            cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       gp_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  if (n > 0 && n_levels > 0) {
-    gp_query_kernel<<<n, kThreads, kSmemBytes, stream>>>(
-        loc, act, alpha, kinv, q, pres, out, n_levels);
+  if (n > 0 && n_levels > 0 && n_slices > 0) {
+    gp_query_kernel<<<dim3(n, n_slices), kThreads, kSmemBytes, stream>>>(
+        loc, act, alpha, kinv, q, pres, out, n_levels, n_slices);
   }
   return (int)cudaGetLastError();
+}
+
+// The kernel's dynamic shared memory in bytes and its resident CTAs per SM,
+// as info[0] and info[1]. Returns the first CUDA error.
+extern "C" int ble_gp_query_info(int* info) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gp_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = kSmemBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[1], gp_query_kernel, kThreads, kSmemBytes);
 }

@@ -7,28 +7,31 @@
 // kinv += (W c) W^T and alpha = kinv' targets; an exact no-op when the
 // step's `enabled` flag is 0), then the posterior at 181 pressure levels
 // against the updated state: means = k*^T alpha and
-// dev = clip((s^2 - sum k* (kinv k*)) / s^2, 0, 1), zero with no active slot.
+// dev = clip((s^2 - k*^T kinv k*) / s^2, 0, 1), zero with no active slot.
 //
-// Design: one CTA of 256 threads per env. The 128x128 float32 inverse lives
-// in dynamic shared memory (rows padded to 129 floats, so row and column
-// walks are both free of bank conflicts) for all K steps, beside the small
-// per-slot buffers; it is read from and written to device memory once per
-// window. The observe phase is gp_core.cuh's, shared with the
-// observe-only kernel csrc/gp_observe.cu: stale-slot search by warp ballot,
-// M = kinv U and S = U^T M as block reductions, the scalar pivot chain on
-// one thread with the same clamps as the JAX package
-// (d_min = 1/(s_f^2 + s_n^2), schur >= s_n^2).
-// The query builds k* 64 levels at a time in shared memory and forms
-// kinv k* with an 8x4 register tile per thread in full float32 on the CUDA
-// cores: no tensor cores, because the variance cancels operands of ~13 down
-// to s_n^2 = 0.05 (TF32 or bf16 would swamp it). The level output is
-// written as (K, E, 181, 3) directly.
+// Bound, per env and step: ~6.7 MFLOP, dominated by the quadratic form at
+// 2 x 181 x 128 x 128, against ~136 KiB of traffic (kinv in and out); at
+// 4096 envs ~27.6 GFLOP (0.41 ms at 67 TFLOP/s) against ~570 MB (0.17 ms
+// at 3.35 TB/s): compute-bound on the float32 CUDA cores.
 //
-// Bound, per env and step: ~6.5 MFLOP, dominated by kinv k* at
-// 2 x 128 x 128 x 181, against ~136 KiB of traffic (kinv in and out); at
-// 4096 envs that is ~27 GFLOP and ~570 MB: compute-bound on the float32
-// CUDA cores. Using kinv's symmetry and its residency across K, and
-// cp.async/TMA staging of the inverse, are later work.
+// Design: one CTA of 256 threads per env, two CTAs an SM. The 128x128
+// float32 inverse lives in dynamic shared memory for all K steps, in rows
+// padded to 132 floats; it is read from and written to device memory once
+// per window. It arrives by cp.async (gp_core.cuh:load_state), with no
+// register round trip, while the first observe searches the stale slots
+// by warp ballot and builds U; the observe waits for it just before
+// M = kinv U. The observe is gp_core.cuh's, shared with the observe-only
+// kernel csrc/gp_observe.cu: M = kinv U and alpha = kinv' targets walk
+// kinv's rows 16 bytes at a time, the rank-8 update reads each row of W c
+// as two 16-byte broadcasts, S = U^T M is a block reduction and the
+// scalar pivot chain runs on one thread with the same clamps as the JAX
+// package (d_min = 1/(s_f^2 + s_n^2), schur >= s_n^2). The query is the
+// engine B5 uses, gp_query_core.cuh:query_levels, over all 181 levels: its
+// header says what it does about the first kernel's scalar shared loads,
+// idle-half-block side loops and ragged last chunk. It forms k* kinv, not
+// the TPU kernel's kinv k*: both sums are the quadratic form k*^T kinv k*
+// and differ only in rounding. The level output is written as
+// (K, E, 181, 3) directly.
 //
 // Built with nvcc's default --fmad=true: sums of products contract to FMA,
 // as cuBLAS's do; the kernel is held to the plain PyTorch version at
@@ -37,33 +40,30 @@
 #include <cuda_runtime.h>
 
 #include "gp_core.cuh"
+#include "gp_query_core.cuh"
 
 namespace {
 
 using namespace ble_gp;
 
 constexpr int kLevels = 181;
-constexpr int kChunk = 64;
-constexpr int kNumChunks = (kLevels + kChunk - 1) / kChunk;
-constexpr int kRowGroups = 16;  // vv tile: 16 row groups x 16 column groups.
-constexpr int kTileRows = kCap / kRowGroups;  // 8
-constexpr int kTileCols = kChunk / 16;  // 4
-
 constexpr double kPresMin = 5000.0, kPresStep = (14000.0 - 5000.0) / 180.0;
 
-// Shared memory layout, in floats.
+// Shared memory layout, in floats (every offset a multiple of 4).
 constexpr int kOffKinv = 0;
 constexpr int kOffLoc = kOffKinv + kCap * kKinvStride;
 constexpr int kOffErr = kOffLoc + kCap * 4;
 constexpr int kOffAct = kOffErr + kCap * 2;
 constexpr int kOffAlpha = kOffAct + kCap;
-constexpr int kOffQc = kOffAlpha + kCap * 2;
-constexpr int kOffScratch = kOffQc + kCap;  // k* chunk, or U | M | W.
-constexpr int kOffRed = kOffScratch + kCap * kChunk;
-constexpr int kOffSmall = kOffRed + kRowGroups * kChunk;
+constexpr int kOffSlot = kOffAlpha + kCap * 2;
+constexpr int kOffPres = kOffSlot + kCap * 4;
+constexpr int kOffScratch = kOffPres + 192;  // k* chunk, or U | M | W.
+constexpr int kOffRed = kOffScratch + kKstarFloats;
+constexpr int kOffSmall = kOffRed + kRedFloats;
 constexpr int kSmemFloats = kOffSmall + kSmallFloats;
 constexpr int kSmemBytes = kSmemFloats * 4;
-static_assert(kCap * kChunk >= kObserveScratchFloats, "scratch too small");
+static_assert(kKstarFloats >= kObserveScratchFloats, "scratch too small");
+static_assert(kLevels <= 192, "pressure table too small");
 
 __global__ void __launch_bounds__(kThreads, 2)
 gp_window_kernel(const float* __restrict__ obs_seq,
@@ -77,24 +77,20 @@ gp_window_kernel(const float* __restrict__ obs_seq,
                  float* __restrict__ kinv_out, float* __restrict__ alpha_out,
                  int* __restrict__ cnt_out, float* __restrict__ level,
                  int n, int k_steps) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const State s{smem + kOffKinv, smem + kOffLoc, smem + kOffErr,
                 smem + kOffAct, smem + kOffAlpha};
-  const float* loc = s.loc;
-  const float* act = s.act;
-  const float* alpha = s.alpha;
-  const float* kinv = s.kinv;
-  float* qc = smem + kOffQc;
+  float4* slot = reinterpret_cast<float4*>(smem + kOffSlot);
+  float* pres = smem + kOffPres;
   float* scratch = smem + kOffScratch;
-  float* red = smem + kOffRed;
   float* small = smem + kOffSmall;
 
   const int e = blockIdx.x;
   const int tid = threadIdx.x;
-  const float sf2 = F(kSigmaF2);
 
-  // --- Load the GP state once per window. ---
+  // --- Load the GP state once per window; kinv is still in flight. ---
   load_state(s, e, loc_in, err_in, act_in, kinv_in, alpha_in);
+  if (tid < kLevels) pres[tid] = F(kPresMin + kPresStep * tid);
   int count = cnt_in[e];
   __syncthreads();
 
@@ -106,88 +102,21 @@ gp_window_kernel(const float* __restrict__ obs_seq,
 
     observe_step(s, scratch, small, count, x, y, p, t, eu, ev, enabled);
     // ---------------- query ----------------
+    bool active = false;
     if (tid < kCap) {
-      const int i = tid;
-      float qdx = (x - loc[i * 4 + 0]) / F(kLsX);
-      float qdy = (y - loc[i * 4 + 1]) / F(kLsY);
-      float qdt = (t - loc[i * 4 + 3]) / F(kLsT);
-      qc[i] = qdx * qdx + qdy * qdy + qdt * qdt + F(1e-12);
+      const float4 lo = reinterpret_cast<const float4*>(s.loc)[tid];
+      const float qdx = (x - lo.x) / F(kLsX);
+      const float qdy = (y - lo.y) / F(kLsY);
+      const float qdt = (t - lo.w) / F(kLsT);
+      const float a = s.act[tid];
+      slot[tid] = make_float4(
+          lo.z, qdx * qdx + qdy * qdy + qdt * qdt + F(1e-12), a, 0.0f);
+      active = a > 0.0f;
     }
-    const float any_valid =
-        __syncthreads_or(tid < kCap && act[tid] > 0.0f) ? 1.0f : 0.0f;
-
-    float* lvl = level + ((size_t)k * n + e) * kLevels * 3;
-    for (int ch = 0; ch < kNumChunks; ++ch) {
-      const int l0 = ch * kChunk;
-      // k* chunk (CAP, 64); levels past 181 are zero columns.
-      for (int idx = tid; idx < kCap * kChunk; idx += kThreads) {
-        const int a = idx / kChunk, jl = idx % kChunk, l = l0 + jl;
-        float ks = 0.0f;
-        if (l < kLevels) {
-          float pres = F(kPresMin + kPresStep * l);
-          float qdp = (pres - loc[a * 4 + 2]) / F(kLsP);
-          float qd = sqrtf(qc[a] + qdp * qdp);
-          ks = (sf2 * expf(-qd)) * act[a];
-        }
-        scratch[idx] = ks;
-      }
-      __syncthreads();
-
-      if (tid < 2 * kChunk) {
-        const int jl = tid % kChunk, comp = tid / kChunk, l = l0 + jl;
-        if (l < kLevels) {
-          float acc = 0.0f;
-          for (int a = 0; a < kCap; ++a)
-            acc += alpha[a * 2 + comp] * scratch[a * kChunk + jl];
-          lvl[l * 3 + comp] = acc * any_valid;
-        }
-      }
-
-      // vv = kinv k* on an 8 x 4 register tile, then k* . vv per column.
-      {
-        const int rg = tid / 16, cg = tid % 16;
-        float acc[kTileRows][kTileCols];
-#pragma unroll
-        for (int i = 0; i < kTileRows; ++i)
-#pragma unroll
-          for (int jj = 0; jj < kTileCols; ++jj) acc[i][jj] = 0.0f;
-        const float* krows = kinv + rg * kTileRows * kKinvStride;
-        for (int kk = 0; kk < kCap; ++kk) {
-          float b[kTileCols];
-#pragma unroll
-          for (int jj = 0; jj < kTileCols; ++jj)
-            b[jj] = scratch[kk * kChunk + cg + 16 * jj];
-#pragma unroll
-          for (int i = 0; i < kTileRows; ++i) {
-            float a = krows[i * kKinvStride + kk];
-#pragma unroll
-            for (int jj = 0; jj < kTileCols; ++jj) acc[i][jj] += a * b[jj];
-          }
-        }
-#pragma unroll
-        for (int jj = 0; jj < kTileCols; ++jj) {
-          const int col = cg + 16 * jj;
-          float part = 0.0f;
-#pragma unroll
-          for (int i = 0; i < kTileRows; ++i)
-            part += scratch[(rg * kTileRows + i) * kChunk + col] * acc[i][jj];
-          red[rg * kChunk + col] = part;
-        }
-      }
-      __syncthreads();
-
-      if (tid < kChunk) {
-        const int l = l0 + tid;
-        if (l < kLevels) {
-          float sum = 0.0f;
-          for (int g = 0; g < kRowGroups; ++g) sum += red[g * kChunk + tid];
-          float var = sf2 - sum;
-          float dev = fminf(fmaxf(var / sf2, 0.0f), 1.0f);
-          lvl[l * 3 + 2] = dev * any_valid;
-        }
-      }
-      __syncthreads();
-    }
+    const float any_valid = __syncthreads_or(active) ? 1.0f : 0.0f;
+    query_levels(s.kinv, slot, s.alpha, pres, scratch,
+                 smem + kOffRed, 0, kLevels, any_valid,
+                 level + ((size_t)k * n + e) * kLevels * 3);
   }
 
   // --- Write the GP state back. ---
@@ -220,5 +149,14 @@ extern "C" int ble_gp_window(const float* obs_seq, const float* loc_in,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory the kernel asks for, in bytes.
-extern "C" int ble_gp_window_smem_bytes() { return kSmemBytes; }
+// The kernel's dynamic shared memory in bytes and its resident CTAs per SM,
+// as info[0] and info[1]. Returns the first CUDA error.
+extern "C" int ble_gp_window_info(int* info) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gp_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = kSmemBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[1], gp_window_kernel, kThreads, kSmemBytes);
+}

@@ -2,7 +2,9 @@
 port of ble_tpu/ops/pallas_gp.py.
 
 `query_kernel` is wind_gp.query_column's route for CUDA tensors: one launch
-of csrc/gp_query.cu for the whole batch (one CTA per env). `query_plain`,
+of csrc/gp_query.cu for the whole batch, a grid of E x S CTAs where each
+env's levels are split into S slices when E alone does not fill the card
+(`level_split`). `query_plain`,
 a batched transcription of pallas_gp._kernel, is its plain version, which
 the tests and chip_smoke.py hold the kernel to; wind_gp.query_column's CPU
 route is the JAX package's CPU form.
@@ -12,6 +14,7 @@ design: see the note at the top of csrc/gp_query.cu.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -20,6 +23,33 @@ from ble_tpu_torch.ops import cuda_build
 
 CAP = wind_gp.CAPACITY
 _LS = wind_gp.LENGTH_SCALES
+# Levels a warp of the query engine owns (csrc/gp_query_core.cuh:
+# kWarpLevels): a slice holds a whole number of them.
+WARP_LEVELS = 16
+
+
+def slice_levels(n_levels: int, n_slices: int) -> int:
+  """Levels of each CTA when one env's levels are split into `n_slices`
+  slices: csrc/gp_query_core.cuh:slice_levels."""
+  per = -(-n_levels // n_slices)
+  return -(-per // WARP_LEVELS) * WARP_LEVELS
+
+
+def level_split(n_envs: int, n_levels: int, n_sms: int) -> int:
+  """Slices S of each env's levels, one CTA each, for a batch of `n_envs`
+  on a card with `n_sms` SMs: 1 when the envs alone give every SM a CTA
+  (more slices would read each inverse again for no gain in occupancy),
+  else as many as give every SM one, at most one a warp's levels. Every
+  slice of `slice_levels(n_levels, S)` levels holds at least one level."""
+  if n_envs >= n_sms or n_levels <= WARP_LEVELS:
+    return 1
+  want = min(-(-n_sms // max(n_envs, 1)), -(-n_levels // WARP_LEVELS))
+  return -(-n_levels // slice_levels(n_levels, want))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+  return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def query_plain(loc, act, alpha, kinv, q, pres):
@@ -50,7 +80,8 @@ def query_plain(loc, act, alpha, kinv, q, pres):
 
 def launch(loc, act, alpha, kinv, q, pres):
   """One launch of csrc/gp_query.cu on CUDA float32 buffers, on the
-  current stream; adds one to `launch.launches`. Returns (E, N, 3)."""
+  current stream, with the levels split by `level_split`; adds one to
+  `launch.launches`. Returns (E, N, 3)."""
   n, levels = loc.shape[0], pres.shape[0]
   cuda_build.check_buffers(loc.device, (
       ('locations', loc, (n, CAP, 4), torch.float32),
@@ -60,12 +91,14 @@ def launch(loc, act, alpha, kinv, q, pres):
       ('q', q, (n, 4), torch.float32),
       ('pressures', pres, (levels,), torch.float32)))
   out = torch.empty((n, levels, 3), dtype=torch.float32, device=loc.device)
+  slices = level_split(n, levels, _sm_count(loc.device.index or 0))
   fn = cuda_build.load('gp_query').ble_gp_query
-  fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [
+  fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
       ctypes.c_void_p]
   fn.restype = ctypes.c_int
   status = fn(*(a.data_ptr() for a in (loc, act, alpha, kinv, q, pres, out)),
-              n, levels, torch.cuda.current_stream(loc.device).cuda_stream)
+              n, levels, slices,
+              torch.cuda.current_stream(loc.device).cuda_stream)
   cuda_build.check(status, 'ble_gp_query')
   launch.launches += 1
   return out

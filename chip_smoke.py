@@ -8,15 +8,18 @@ each of its hand-written CUDA kernels against its plain PyTorch version.
 Phases (each raises on a failure, so the exit code is then not 0):
   device     requires CUDA; prints the card's name and power limit.
   build      compiles every csrc/*.cu for sm_90a, one nvcc each, in
-             parallel, and prints ptxas's report.
+             parallel, and prints ptxas's registers and spills, each GP
+             kernel's shared memory and CTAs a SM, and the FMA and
+             shared-load counts of its SASS.
   kernels    each kernel against its plain version on the same CUDA
              inputs: B1, the physics substeps, at E = 4096 envs and 18
              substeps on states from the port's own reset; B2, the GP
              window, at E = 4096 for K = 1 and K = 8 on a GP state warmed
              through expiries and ring wraparound; the GP observe at E = 1
              (B3) and E = 4096 (B4, every 4th env disabled); the column
-             query (B5) at E = 1 and 4096; and the 960-step churn-drift
-             track through B3.
+             query (B5) at E = 1, 7, 131 and 4096 (the edges of its level
+             split) at N = 181 and 37, and on empty states (exactly 0);
+             and the 960-step churn-drift track through B3.
   reference  an 8-env, 32-step StationSeeker eval on the card (kernels)
              against the same eval on the CPU (plain versions).
   gym        this slice's path: BalloonEnv(wind_field='generative'), 128
@@ -33,7 +36,10 @@ Phases (each raises on a failure, so the exit code is then not 0):
              initial state: the first run is counted, the second timed.
   timing     each kernel at its path's shapes with CUDA events, beside its
              plain version, a library call where one computes the same
-             function or its dominant term, and its bound.
+             function or its dominant term, and its bound; for B3, B4 and
+             B5 also the kernels' own device time under torch.profiler
+             (at E = 1 the events time the host's launch path), and for
+             B2 and B5 at 4096 the SM clock and power under load.
   numerics   (not in the default set) B1's kernel, its plain version on
              the card and on the CPU against each other after 1 and 18
              substeps.
@@ -43,6 +49,9 @@ Phases (each raises on a failure, so the exit code is then not 0):
   profile    (not in the default set) torch.profiler over 16 steps of the
              main path: time by operator on the device and on the host,
              and the device's busy share.
+  tile       (not in the default set) the GP query engine's product loop
+             alone in four forms (csrc/bench/product_tile.cu): what bounds
+             it, shared loads or FMAs.
 
 The generative fields come from the VAE decoder's deterministic fallback
 (models/loader.py): no trained decoder is in the repository.
@@ -122,6 +131,56 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, reps: int = 50):
+  """Milliseconds of CUDA kernels one call of fn() runs on the card, by
+  torch.profiler (CUPTI) over `reps` calls: the kernels' own time, without
+  the host's launch path, which CUDA events over back-to-back calls of a
+  small kernel measure instead. The lower of two sessions that recorded
+  kernels; None if neither did."""
+  fn()
+  torch.cuda.synchronize()
+
+  def run():
+    for _ in range(reps):
+      fn()
+    torch.cuda.synchronize()
+
+  readings = [device_time(run, reps)[0] for _ in range(2)]
+  readings = [r for r in readings if r > 0]
+  return min(readings) if readings else None
+
+
+def clock_under_load(fn, seconds: float = 2.0) -> dict:
+  """The SM clock (MHz) and board power (W) nvidia-smi samples every 100 ms
+  while fn() runs back to back for `seconds`: the medians over the samples
+  taken under load."""
+  proc = subprocess.Popen(
+      ['nvidia-smi', '--query-gpu=clocks.sm,power.draw',
+       '--format=csv,noheader,nounits', '-lms', '100'],
+      stdout=subprocess.PIPE, text=True)
+  try:
+    time.sleep(0.5)
+    t = time.perf_counter()
+    while time.perf_counter() - t < seconds:
+      for _ in range(20):
+        fn()
+      torch.cuda.synchronize()
+  finally:
+    proc.terminate()
+    out = proc.communicate()[0]
+  samples = []
+  for line in out.splitlines():
+    try:
+      samples.append([float(x) for x in line.split(',')])
+    except ValueError:
+      continue
+  samples = samples[len(samples) // 4:]  # the first ones precede the load
+  if not samples:
+    return {}
+  return {'sm_clock_mhz': float(np.median([c for c, _ in samples])),
+          'power_w': float(np.median([w for _, w in samples]))}
 
 
 def check(ok: bool, what: str) -> None:
@@ -498,37 +557,73 @@ def check_b3_drift() -> None:
     check(drift[0] < 5e-2 and drift[1] < 1e-3, f'B3 drift {drift}')
 
 
-def check_b5(state, xs, ys, ts, name: str) -> dict:
+def check_b5(state, xs, ys, ts, name: str, n_levels: int = 181) -> dict:
   """The column-query kernel against its plain version at the 181 feature
-  levels: means and deviations to B5_ATOL, shapes and finiteness."""
+  levels (or at n_levels pressures spread over the same span): means and
+  deviations to B5_ATOL, shapes and finiteness."""
   from ble_tpu_torch.ops import gp_query
   from ble_tpu_torch.ops import gp_window
-  args = gp_query.pack(state, xs, ys, ts, gp_window.pressure_levels(DEV))
+  pres = (gp_window.pressure_levels(DEV) if n_levels == 181 else
+          torch.linspace(5500.0, 13500.0, n_levels, device=DEV))
+  args = gp_query.pack(state, xs, ys, ts, pres)
   got = gp_query.launch(*args)
   want = gp_query.query_plain(*args)
   torch.cuda.synchronize()
   n = xs.shape[0]
-  check(tuple(got.shape) == (n, 181, 3), f'{name} shape {got.shape}')
+  check(tuple(got.shape) == (n, n_levels, 3), f'{name} shape {got.shape}')
   check(bool(torch.isfinite(got).all()), f'{name} not finite')
   errs = {'means': float((got[..., :2] - want[..., :2]).abs().max()),
           'deviations': float((got[..., 2] - want[..., 2]).abs().max())}
-  log(f'{name} E={n} max |kernel - plain|:', json.dumps(errs))
+  slices = gp_query.level_split(n, n_levels, gp_query._sm_count(0))
+  log(f'{name} E={n} N={n_levels} S={slices} max |kernel - plain|:',
+      json.dumps(errs))
   for f, err in errs.items():
     check(err <= B5_ATOL[f], f'{name} {f} error {err} > {B5_ATOL[f]}')
   return {'max_abs_err': max(errs.values())}
 
 
+def first_envs(state, n: int):
+  """The first n envs of a GP state."""
+  return dataclasses.replace(state, **{
+      f.name: getattr(state, f.name)[:n] for f in dataclasses.fields(state)})
+
+
+def check_b5_split(gp_state, state1, obs1, obs) -> dict:
+  """B5 at the edges of its level split: E = 1 (12 slices of 16 levels
+  at N = 181), 7, 131 (2 slices) and 4096 (1 slice), each at N = 181 and
+  the ragged N = 37; and on empty states, which must read exactly 0.
+  Returns the readings of the gym (E = 1) and pair (E = 4096) shapes."""
+  from ble_tpu_torch.env import wind_gp
+  from ble_tpu_torch.ops import gp_query
+  from ble_tpu_torch.ops import gp_window
+  errs = {}
+  for n in (1, 7, 131, E):
+    if n == 1:
+      st, ob = state1, obs1
+    else:
+      st, ob = first_envs(gp_state, n), obs[:n]
+    for levels in (181, 37):
+      err = check_b5(st, ob[:, 0], ob[:, 1], ob[:, 3], 'B5', levels)
+      if levels == 181 and n in (1, E):
+        errs['gp_query_gym' if n == 1 else 'gp_query_pair'] = err
+  for n in (1, 7, 131, E):
+    z = torch.zeros(n, device=DEV)
+    out = gp_query.launch(*gp_query.pack(wind_gp.init(n, DEV), z, z, z,
+                                         gp_window.pressure_levels(DEV)))
+    check(int(torch.count_nonzero(out)) == 0, f'B5 empty state E={n} not 0')
+  log('B5 empty states E=1, 7, 131, 4096: exactly 0')
+  return errs
+
+
 def check_b3_b4_b5(gp_state) -> dict:
   """B3 at E = 1 and B4 at E = 4096 from warmed states (odd step: every
-  4th env disabled), B5 at E = 1 and 4096, and B3's drift track."""
+  4th env disabled), B5 at the edges of its level split, and B3's drift
+  track."""
   state1, obs1 = gp_track_state(1, 140, seed=5)
   errs = {'gp_observe_b3': check_b3_b4(state1, obs1, 'B3')}
   obs = gp_obs_seq(1, 2, E, t0_step=140)[1]
   errs['gp_observe_b4'] = check_b3_b4(gp_state, obs, 'B4')
-  errs['gp_query_gym'] = check_b5(state1, obs1[:, 0], obs1[:, 1],
-                                  obs1[:, 3], 'B5')
-  errs['gp_query_pair'] = check_b5(gp_state, obs[:, 0], obs[:, 1],
-                                   obs[:, 3], 'B5')
+  errs.update(check_b5_split(gp_state, state1, obs1, obs))
   check_b3_drift()
   return errs
 
@@ -536,7 +631,40 @@ def check_b3_b4_b5(gp_state) -> dict:
 # ------------------------------------------------------------ phases ------
 
 
+def sass_mix(library: str) -> dict:
+  """Static counts of float FMAs and shared loads (all, and 16-byte) in
+  each kernel of a built library, from cuobjdump's SASS; {} without
+  cuobjdump."""
+  import re
+  import shutil
+  tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+  try:
+    text = subprocess.run([tool, '-sass', library], check=True,
+                          capture_output=True, text=True).stdout
+  except (OSError, subprocess.CalledProcessError):
+    return {}
+  mix, name = {}, None
+  for line in text.splitlines():
+    m = re.search(r'Function : (\S+)', line)
+    if m:
+      name = m.group(1)
+      mix[name] = {'FFMA': 0, 'LDS': 0, 'LDS.128': 0}
+    elif name is not None:
+      if re.search(r'\bFFMA\b', line):
+        mix[name]['FFMA'] += 1
+      if re.search(r'\bLDS(\.|\s)', line):
+        mix[name]['LDS'] += 1
+        if 'LDS.128' in line:
+          mix[name]['LDS.128'] += 1
+  return mix
+
+
 def phase_build():
+  """Builds every kernel and prints, for each, ptxas's registers, spills
+  and static shared memory, the dynamic shared memory and resident CTAs a
+  SM (from the GP libraries' info entries), and the static FMA/shared-load
+  mix of its SASS."""
+  import ctypes
   from ble_tpu_torch.ops import cuda_build
   t = time.perf_counter()
   seconds = cuda_build.build()
@@ -547,7 +675,54 @@ def phase_build():
       for line in f:
         if 'registers' in line or 'spill' in line or 'smem' in line:
           log(f'  ptxas {name}: {line.strip()}')
-    cuda_build.load(name)
+    lib = cuda_build.load(name)
+    info_fn = getattr(lib, f'ble_{name}_info', None)
+    if info_fn is not None:
+      info = (ctypes.c_int * 2)()
+      info_fn.argtypes = [ctypes.c_void_p]
+      cuda_build.check(info_fn(ctypes.addressof(info)), f'ble_{name}_info')
+      log(f'  {name}: {info[0]} bytes of dynamic shared memory, {info[1]} '
+          f'CTAs a SM')
+    for kernel, mix in sass_mix(cuda_build.library_path(name)).items():
+      log(f'  sass {name} {kernel}: {json.dumps(mix)}')
+
+
+def phase_tile() -> None:
+  """The query engine's product loop alone (csrc/bench/product_tile.cu) in
+  five forms, 4096 CTAs of 256 threads: the engine's 4 x 8 thread tile
+  (three 16-byte shared loads a step for 32 FMAs), the same FMAs with one
+  load and with none, an 8 x 8 tile on half the threads, and an 8 x 8 tile
+  on all threads with the sum over a split between the half-warps. Prints the
+  milliseconds of a launch with 1 and 3 passes over a 64-level chunk and
+  the float32 rate of a pass (their difference drops the set-up)."""
+  import ctypes
+  import os
+  from ble_tpu_torch.ops import cuda_build
+  src = os.path.join(cuda_build.CSRC_DIR, 'bench', 'product_tile.cu')
+  os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+  path = os.path.join(cuda_build.BUILD_DIR, 'libproduct_tile.so')
+  subprocess.run([cuda_build._nvcc(), *cuda_build._COMMON_FLAGS, '-o', path,
+                  src], check=True, capture_output=True)
+  lib = ctypes.CDLL(path)
+  lib.run.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p]
+  lib.run.restype = ctypes.c_int
+  ctas = 4096
+  out = torch.empty(ctas * 256, device=DEV)
+  stream = torch.cuda.current_stream().cuda_stream
+
+  def launch(form, passes):
+    cuda_build.check(lib.run(form, out.data_ptr(), ctas, passes, stream),
+                     'product_tile')
+
+  names = ('engine 4x8, 3 loads', '4x8, 1 load', '4x8, no load',
+           '8x8 on half the threads', '8x8, sum over a split by half-warp')
+  for form, name in enumerate(names):
+    ms1 = cuda_ms(lambda: launch(form, 1), reps=20)
+    ms3 = cuda_ms(lambda: launch(form, 3), reps=20)
+    tflops = 2.0 * ctas * 64 * 128 * 128 / ((ms3 - ms1) / 2) / 1e9
+    log(f'tile V{form} ({name}): {ms1:.4f} ms 1 pass, {ms3:.4f} ms 3 '
+        f'passes, {tflops:.1f} TFLOP/s a pass')
 
 
 def generative_field_fn():
@@ -856,9 +1031,15 @@ def time_b5(gp_state, xs, ys, ts) -> dict:
   k_star = torch.rand((n, 181, 128), device=DEV)
   kinv = args[3]
   library_ms = cuda_ms(lambda: torch.bmm(k_star, kinv), reps=20)
-  return _bound_row(ms, plain_ms, library_ms,
-                    1e3 * n * query_ops(181) / PEAK_F32_FLOPS,
-                    query_bytes(n, 181))
+  row = _bound_row(ms, plain_ms, library_ms,
+                   1e3 * n * query_ops(181) / PEAK_F32_FLOPS,
+                   query_bytes(n, 181))
+  row['device_ms'] = kernel_device_ms(lambda: gp_query.launch(*args))
+  row['library_device_ms'] = kernel_device_ms(lambda: torch.bmm(k_star, kinv))
+  row['slices'] = gp_query.level_split(n, 181, gp_query._sm_count(0))
+  if n > 1:
+    row.update(clock_under_load(lambda: gp_query.launch(*args)))
+  return row
 
 
 def phase_timing(params, state, gp_state, gym_state) -> dict:
@@ -889,6 +1070,7 @@ def phase_timing(params, state, gp_state, gym_state) -> dict:
   out['gp_window'] = _bound_row(ms, plain_ms, library_ms,
                                 1e3 * b2_ops(obs) / PEAK_F32_FLOPS,
                                 b2_bytes(obs))
+  out['gp_window'].update(clock_under_load(lambda: gp_window.launch(*args)))
 
   # B3 (E = 1) and B4 (E = 4096): the observe alone. The library yardstick
   # is one batched float32 baddbmm of its rank-8 update, kinv + (W c) W^T,
@@ -909,6 +1091,8 @@ def phase_timing(params, state, gp_state, gym_state) -> dict:
     out[name] = _bound_row(ms, plain_ms, library_ms,
                            1e3 * enabled * OBSERVE_OPS / PEAK_F32_FLOPS,
                            observe_bytes(n))
+    out[name]['device_ms'] = kernel_device_ms(
+        lambda: gp_observe.launch(*args))
 
   out['gp_query_pair'] = time_b5(gp_state, obs[0, :, 0], obs[0, :, 1],
                                  obs[0, :, 3])
@@ -1006,7 +1190,8 @@ def main(argv=None) -> int:
   parser.add_argument('--phases', default=','.join(DEFAULT_PHASES),
                       help='comma-separated subset of: ' +
                       ', '.join(DEFAULT_PHASES +
-                                ('numerics', 'calibrate', 'profile')))
+                                ('numerics', 'calibrate', 'profile',
+                                 'tile')))
   args = parser.parse_args(argv)
   phases = set(args.phases.split(','))
 
@@ -1023,6 +1208,8 @@ def main(argv=None) -> int:
       f'CUDA {torch.version.cuda}')
   if 'build' in phases:
     phase_build()
+  if 'tile' in phases:
+    phase_tile()
 
   params = env_lib.EnvParams(field_cache=True)
   field_fn = state0 = obs0 = gp_state = None

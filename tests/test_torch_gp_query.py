@@ -2,7 +2,9 @@
 the port of ble_tpu/ops/pallas_gp.py) against the Pallas kernel in
 interpret mode on the CPU, on GP states the JAX package populates along a
 drifting track. Tolerances are tests/test_pallas_gp.py's: means atol 2e-4,
-deviations 2e-5, exactly zero for an empty state."""
+deviations 2e-5, exactly zero for an empty state. Also the kernel's level
+split over CTAs, and the identity that lets one query engine serve this
+kernel and the GP window's."""
 
 import dataclasses
 
@@ -19,6 +21,7 @@ from ble_tpu_torch import bridge
 from ble_tpu_torch.env import features
 from ble_tpu_torch.env import wind_gp
 from ble_tpu_torch.ops import gp_query
+from ble_tpu_torch.ops import gp_window
 
 _jax_observe = jax.jit(jax_gp.observe)
 
@@ -88,3 +91,76 @@ def test_query_plain_empty_state_is_zero():
   z = torch.zeros(2)
   means, dev = _query_plain(state, z, z, z, features.pressure_levels())
   assert torch.count_nonzero(means) == 0 and torch.count_nonzero(dev) == 0
+
+
+@pytest.mark.parametrize('n_levels', [1, 37, 181])
+@pytest.mark.parametrize('n_envs', [1, 7, 131, 4096])
+def test_level_split_covers_every_level_once(n_envs, n_levels):
+  """B5's grid of E x S CTAs on a 132-SM card: each env's levels fall into
+  S contiguous slices of whole warps' levels that cover every level exactly
+  once, with no empty CTA; one slice when the envs fill the card, and at
+  one env as many CTAs as the levels allow, at least 8 at N = 181."""
+  slices = gp_query.level_split(n_envs, n_levels, 132)
+  per = gp_query.slice_levels(n_levels, slices)
+  assert per % gp_query.WARP_LEVELS == 0
+  covered = np.zeros(n_levels, np.int64)
+  for s in range(slices):
+    begin, end = s * per, min(n_levels, s * per + per)
+    assert begin < end, f'slice {s} of {slices} is empty'
+    covered[begin:end] += 1
+  np.testing.assert_array_equal(covered, 1)
+  if n_envs >= 132:
+    assert slices == 1
+  if n_envs == 1:
+    assert slices == -(-n_levels // gp_query.WARP_LEVELS)
+    if n_levels == 181:
+      assert n_envs * slices >= 8
+
+
+def test_window_levels_match_column_query_of_its_state():
+  """The GP window's plain version at K = 1 (ops/gp_window.py, kinv k*)
+  and the column query's (k* kinv) on the state the window returns, at the
+  same (x, y, t) and the 181 levels: one quadratic form k*^T kinv k*,
+  whatever the inverse's asymmetry (here an antisymmetric part of ~1e-2
+  added to it), so one query engine (csrc/gp_query_core.cuh) serves both
+  kernels. The step runs in float64, where the two orders agree to 1e-9 on
+  8 envs; in float32 they differ by rounding alone (deviations 8e-6 on the
+  unperturbed state)."""
+  n = 8
+  rng = np.random.RandomState(11)
+  state = wind_gp.init(n)
+  x = rng.normal(0, 50e3, n)
+  y = rng.normal(0, 50e3, n)
+  p = rng.uniform(6000, 13000, n)
+  dt = np.where(np.arange(n) % 2, 60.0, 180.0)
+  obs = np.zeros((150, n, 8), np.float32)
+  for i in range(150):
+    x, y = x + rng.normal(0, 2000.0, n), y + rng.normal(0, 2000.0, n)
+    p = np.clip(p + rng.normal(0, 150.0, n), 5500, 13500)
+    obs[i, :, 0], obs[i, :, 1], obs[i, :, 2] = x, y, p
+    obs[i, :, 3] = dt * (i + 1)
+    obs[i, :, 4:6] = rng.normal(0, 1.0, (n, 2))
+    obs[i, :, 6] = 1.0
+  obs = torch.from_numpy(obs)
+  state, _ = gp_window.window_plain(state, obs[:149])
+  f64 = lambda a: a.to(torch.float64) if a.is_floating_point() else a
+  state64 = wind_gp.WindGPState(**{
+      f.name: f64(getattr(state, f.name)) for f in dataclasses.fields(state)})
+  # An antisymmetric part far above the incremental inverse's own drift.
+  r = torch.from_numpy(rng.normal(0, 1e-2, (n, 128, 128)))
+  state64.kinv = state64.kinv + (r - r.transpose(1, 2))
+  row = obs[149].to(torch.float64)
+  new_state, level = gp_window.window_plain(state64, row[None])
+  asym = float((new_state.kinv - new_state.kinv.transpose(1, 2)).abs().max())
+  assert asym > 1e-2
+  q = torch.stack([row[:, 0], row[:, 1], row[:, 3], torch.zeros(n)], dim=-1)
+  out = gp_query.query_plain(
+      new_state.locations, new_state.active.to(torch.float64),
+      new_state.alpha, new_state.kinv, q,
+      gp_window.pressure_levels().to(torch.float64))
+  assert out.dtype == level.dtype == torch.float64
+  np.testing.assert_allclose(out[..., :2].numpy(), level[0, ..., :2].numpy(),
+                             atol=1e-9)
+  np.testing.assert_allclose(out[..., 2].numpy(), level[0, ..., 2].numpy(),
+                             atol=1e-9)
+  assert float(level[0, ..., 2].min()) < 0.5  # the levels see the data

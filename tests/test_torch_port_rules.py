@@ -36,7 +36,8 @@ _FORBIDDEN = re.compile(
 
 
 def _port_sources():
-  paths = [os.path.join(_ROOT, 'chip_smoke.py')]
+  paths = [os.path.join(_ROOT, name)
+           for name in ('chip_smoke.py', 'gp_kernel_times.py')]
   for root, _, files in os.walk(_PKG):
     paths += [os.path.join(root, f) for f in files if f.endswith('.py')]
   return sorted(paths)
