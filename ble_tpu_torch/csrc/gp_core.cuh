@@ -2,8 +2,10 @@
 // of kinv in shared memory and its asynchronous staging, and for
 // csrc/gp_window.cu (B2, observe + query per step) and csrc/gp_observe.cu
 // (B3/B4, observe only) the load and store of one env's state to and from
-// shared memory and the observe on it. csrc/gp_query_core.cuh, the query
-// engine of B2 and B5, builds on it.
+// shared memory and the observe on it: observe_step on one CTA, built from
+// plan_insert, gram_pivots, w_row and insert_slot, of which B3's cluster
+// observe (csrc/gp_observe.cu) shares all but gram_pivots.
+// csrc/gp_query_core.cuh, the query engine of B2 and B5, builds on it.
 //
 // The observe is the TPU kernels' _observe_core + _finish
 // (ble_tpu/ops/pallas_gp_window.py, ble_tpu/ops/pallas_gp_observe.py): two
@@ -126,6 +128,170 @@ __device__ __forceinline__ void store_state(
   if (tid == 0) cnt_out[e] = count;
 }
 
+// What the observe removes and inserts: the first two stale slots (kCap
+// where there is none), the ring slot, whether the ring slot is evicted,
+// and this thread's slot's active flag after the insert (threads < kCap).
+struct Plan {
+  int first1, first2, slot;
+  bool slot_active;
+  float act_final_i;
+};
+
+// The observe's first phase, the same for every slicing of kinv's rows:
+// the stale-slot ballot over the whole state (act, loc), the slots the
+// observation removes and inserts, and the update basis U = [e1 e2 eo v]
+// (CAP, 4) into `u_mat` by threads < kCap. Holds one block barrier; the
+// caller synchronises before reading u_mat.
+__device__ __forceinline__ Plan plan_insert(const float* act, const float* loc,
+                                            float* small, float* u_mat,
+                                            int count, float x, float y,
+                                            float p, float t) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  // Stale slots: active and older than the 6-hour window.
+  if (warp < kCap / 32) {
+    int i = tid;
+    bool stale = act[i] > 0.5f && (t - loc[i * 4 + 3]) >= F(kTimeHorizonS);
+    unsigned word = __ballot_sync(0xffffffffu, stale);
+    if (lane == 0) reinterpret_cast<unsigned*>(small)[kSmallWords + warp] =
+        word;
+  }
+  __syncthreads();
+  Plan pl;
+  pl.first1 = kCap;
+  pl.first2 = kCap;
+  {
+    const unsigned* words =
+        reinterpret_cast<const unsigned*>(small) + kSmallWords;
+    for (int w = 0; w < kCap / 32; ++w) {
+      unsigned word = words[w];
+      while (word && pl.first2 == kCap) {
+        int bit = __ffs(word) - 1;
+        word &= word - 1;
+        if (pl.first1 == kCap) pl.first1 = w * 32 + bit;
+        else pl.first2 = w * 32 + bit;
+      }
+    }
+  }
+  pl.slot = count % kCap;
+  // The ring slot is evicted when it is still active after the expiries.
+  pl.slot_active =
+      act[pl.slot] > 0.5f && pl.slot != pl.first1 && pl.slot != pl.first2;
+
+  pl.act_final_i = 0.0f;
+  if (tid < kCap) {
+    const int i = tid;
+    float e1 = i == pl.first1 ? 1.0f : 0.0f;
+    float e2 = i == pl.first2 ? 1.0f : 0.0f;
+    float slot_e = i == pl.slot ? 1.0f : 0.0f;
+    float eo = (pl.slot_active && i == pl.slot) ? 1.0f : 0.0f;
+    float act_after_rm = (e1 > 0.5f || e2 > 0.5f) ? 0.0f : act[i];
+    float act_pre = eo > 0.5f ? 0.0f : act_after_rm;
+    pl.act_final_i = fmaxf(act_pre, slot_e);
+    float dx = (x - loc[i * 4 + 0]) / F(kLsX);
+    float dy = (y - loc[i * 4 + 1]) / F(kLsY);
+    float dp = (p - loc[i * 4 + 2]) / F(kLsP);
+    float dt = (t - loc[i * 4 + 3]) / F(kLsT);
+    float d = sqrtf(dx * dx + dy * dy + dp * dp + dt * dt + F(1e-12));
+    float v = (F(kSigmaF2) * expf(-d)) * act_pre;
+    u_mat[i * 4 + 0] = e1;
+    u_mat[i * 4 + 1] = e2;
+    u_mat[i * 4 + 2] = eo;
+    u_mat[i * 4 + 3] = v;
+  }
+  return pl;
+}
+
+// Gram-chain pivots (pallas_gp_window._observe_core) from the 4x4
+// S = U^T kinv U in small[kSmallS..]: the coefficients c (8) and
+// a[q * 4 + j] = tc[q][j] / safe[q] into `small`. One thread runs it.
+__device__ __forceinline__ void gram_pivots(const Plan& pl, float* small) {
+  const bool removing[3] = {pl.first1 < kCap, pl.first2 < kCap,
+                            pl.slot_active};
+  const float* sm = small + kSmallS;
+  const float d0 = F(kSigmaF2 + kSigmaN2);
+  const float d_min = F(1.0 / (kSigmaF2 + kSigmaN2));
+  float tc[4][4];
+  float safe[3];
+  for (int j = 0; j < 3; ++j) {
+    float dj = sm[j * 4 + j];
+    for (int q = 0; q < j; ++q) {
+      float acc = 0.0f;
+      for (int r = 0; r < q; ++r) acc = acc + (tc[r][q] / safe[r]) * tc[r][j];
+      tc[q][j] = sm[j * 4 + q] - acc;
+      dj = dj - tc[q][j] * tc[q][j] / safe[q];
+    }
+    safe[j] = fabsf(dj) > d_min ? dj : (removing[j] ? d_min : 1.0f);
+  }
+  for (int q = 0; q < 3; ++q) {
+    float acc = 0.0f;
+    for (int r = 0; r < q; ++r) acc = acc + (tc[r][q] / safe[r]) * tc[r][3];
+    tc[q][3] = sm[3 * 4 + q] - acc;
+  }
+  float dv_acc = 0.0f;
+  for (int q = 0; q < 3; ++q) dv_acc = dv_acc + tc[q][3] * tc[q][3] / safe[q];
+  const float d_v = sm[3 * 4 + 3] - dv_acc;
+  const float schur = fmaxf(d0 - d_v, F(kSigmaN2));
+  float* c = small + kSmallC;
+  c[0] = -1.0f / safe[0];
+  c[1] = -1.0f / safe[1];
+  c[2] = -1.0f / safe[2];
+  c[3] = 1.0f;
+  c[4] = 1.0f;
+  c[5] = 1.0f;
+  c[6] = 1.0f / schur;
+  c[7] = -1.0f;
+  float* a = small + kSmallA;  // a[q * 4 + j] = tc[q][j] / safe[q].
+  for (int j = 1; j < 4; ++j)
+    for (int q = 0; q < j; ++q) a[q * 4 + j] = tc[q][j] / safe[q];
+}
+
+// Row i of the update vectors in real space, W = [w0 w1 w2 e1 e2 eo yv
+// slot_e], from row i of M = kinv U and of U: into `wr` (8 floats) and,
+// scaled by c, into `wc` (8 floats, 16-byte aligned).
+__device__ __forceinline__ void w_row(int i, int slot, const float* m_row,
+                                      const float* u_row, const float* small,
+                                      float* wr, float* wc) {
+  const float* a = small + kSmallA;
+  float w[4];
+  for (int j = 0; j < 4; ++j) {
+    float wj = m_row[j];
+    for (int q = 0; q < j; ++q) wj = wj - a[q * 4 + j] * w[q];
+    w[j] = wj;
+  }
+  float slot_e = i == slot ? 1.0f : 0.0f;
+  wr[0] = w[0];
+  wr[1] = w[1];
+  wr[2] = w[2];
+  wr[3] = u_row[0];
+  wr[4] = u_row[1];
+  wr[5] = u_row[2];
+  wr[6] = w[3] - slot_e;
+  wr[7] = slot_e;
+  const float* c = small + kSmallC;
+  float4* wc4 = reinterpret_cast<float4*>(wc);
+  wc4[0] = make_float4(wr[0] * c[0], wr[1] * c[1], wr[2] * c[2],
+                       wr[3] * c[3]);
+  wc4[1] = make_float4(wr[4] * c[4], wr[5] * c[5], wr[6] * c[6],
+                       wr[7] * c[7]);
+}
+
+// The slot bookkeeping of an enabled observe: every slot's active flag,
+// and the observation's location and error into the ring slot.
+__device__ __forceinline__ void insert_slot(const Plan& pl, float* act,
+                                            float* loc, float* err, float x,
+                                            float y, float p, float t,
+                                            float eu, float ev) {
+  const int tid = threadIdx.x;
+  if (tid < kCap) act[tid] = pl.act_final_i;
+  if (tid < 4) loc[pl.slot * 4 + tid] = tid == 0 ? x : tid == 1 ? y
+                                      : tid == 2 ? p : t;
+  if (tid == 4) err[pl.slot * 2 + 0] = eu;
+  if (tid == 5) err[pl.slot * 2 + 1] = ev;
+}
+
 // One observation [x, y, p, t, eu, ev] into the state; `count` is the
 // number of observations ever written and advances when `enabled`.
 // `scratch` holds kObserveScratchFloats and `small` kSmallFloats floats.
@@ -147,59 +313,9 @@ __device__ __forceinline__ void observe_step(
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const float sf2 = F(kSigmaF2);
-  const float sn2 = F(kSigmaN2);
 
-  // Stale slots: active and older than the 6-hour window.
-  if (warp < kCap / 32) {
-    int i = tid;
-    bool stale = act[i] > 0.5f && (t - loc[i * 4 + 3]) >= F(kTimeHorizonS);
-    unsigned word = __ballot_sync(0xffffffffu, stale);
-    if (lane == 0) reinterpret_cast<unsigned*>(small)[kSmallWords + warp] =
-        word;
-  }
-  __syncthreads();
-  int first1 = kCap, first2 = kCap;
-  {
-    const unsigned* words =
-        reinterpret_cast<const unsigned*>(small) + kSmallWords;
-    for (int w = 0; w < kCap / 32; ++w) {
-      unsigned word = words[w];
-      while (word && first2 == kCap) {
-        int bit = __ffs(word) - 1;
-        word &= word - 1;
-        if (first1 == kCap) first1 = w * 32 + bit;
-        else first2 = w * 32 + bit;
-      }
-    }
-  }
-  const int slot = count % kCap;
-  // The ring slot is evicted when it is still active after the expiries.
-  const bool slot_active =
-      act[slot] > 0.5f && slot != first1 && slot != first2;
-  const bool removing[3] = {first1 < kCap, first2 < kCap, slot_active};
-
-  float act_final_i = 0.0f;
-  if (tid < kCap) {
-    const int i = tid;
-    float e1 = i == first1 ? 1.0f : 0.0f;
-    float e2 = i == first2 ? 1.0f : 0.0f;
-    float slot_e = i == slot ? 1.0f : 0.0f;
-    float eo = (slot_active && i == slot) ? 1.0f : 0.0f;
-    float act_after_rm = (e1 > 0.5f || e2 > 0.5f) ? 0.0f : act[i];
-    float act_pre = eo > 0.5f ? 0.0f : act_after_rm;
-    act_final_i = fmaxf(act_pre, slot_e);
-    float dx = (x - loc[i * 4 + 0]) / F(kLsX);
-    float dy = (y - loc[i * 4 + 1]) / F(kLsY);
-    float dp = (p - loc[i * 4 + 2]) / F(kLsP);
-    float dt = (t - loc[i * 4 + 3]) / F(kLsT);
-    float d = sqrtf(dx * dx + dy * dy + dp * dp + dt * dt + F(1e-12));
-    float v = (sf2 * expf(-d)) * act_pre;
-    u_mat[i * 4 + 0] = e1;
-    u_mat[i * 4 + 1] = e2;
-    u_mat[i * 4 + 2] = eo;
-    u_mat[i * 4 + 3] = v;
-  }
+  const Plan pl = plan_insert(act, loc, small, u_mat, count, x, y, p, t);
+  const int slot = pl.slot;
   cp_async_wait_all();
   __syncthreads();
 
@@ -238,74 +354,12 @@ __device__ __forceinline__ void observe_step(
   }
   __syncthreads();
 
-  // Gram-chain pivots on one thread (pallas_gp_window._observe_core).
-  if (tid == 0) {
-    const float* sm = small + kSmallS;
-    const float d0 = F(kSigmaF2 + kSigmaN2);
-    const float d_min = F(1.0 / (kSigmaF2 + kSigmaN2));
-    float tc[4][4];
-    float safe[3];
-    for (int j = 0; j < 3; ++j) {
-      float dj = sm[j * 4 + j];
-      for (int q = 0; q < j; ++q) {
-        float acc = 0.0f;
-        for (int r = 0; r < q; ++r) acc = acc + (tc[r][q] / safe[r]) * tc[r][j];
-        tc[q][j] = sm[j * 4 + q] - acc;
-        dj = dj - tc[q][j] * tc[q][j] / safe[q];
-      }
-      safe[j] = fabsf(dj) > d_min ? dj : (removing[j] ? d_min : 1.0f);
-    }
-    for (int q = 0; q < 3; ++q) {
-      float acc = 0.0f;
-      for (int r = 0; r < q; ++r) acc = acc + (tc[r][q] / safe[r]) * tc[r][3];
-      tc[q][3] = sm[3 * 4 + q] - acc;
-    }
-    float dv_acc = 0.0f;
-    for (int q = 0; q < 3; ++q) dv_acc = dv_acc + tc[q][3] * tc[q][3] / safe[q];
-    const float d_v = sm[3 * 4 + 3] - dv_acc;
-    const float schur = fmaxf(d0 - d_v, sn2);
-    float* c = small + kSmallC;
-    c[0] = -1.0f / safe[0];
-    c[1] = -1.0f / safe[1];
-    c[2] = -1.0f / safe[2];
-    c[3] = 1.0f;
-    c[4] = 1.0f;
-    c[5] = 1.0f;
-    c[6] = 1.0f / schur;
-    c[7] = -1.0f;
-    float* a = small + kSmallA;  // a[q * 4 + j] = tc[q][j] / safe[q].
-    for (int j = 1; j < 4; ++j)
-      for (int q = 0; q < j; ++q) a[q * 4 + j] = tc[q][j] / safe[q];
-  }
+  if (tid == 0) gram_pivots(pl, small);
   __syncthreads();
 
-  // Update vectors in real space: W = [w0 w1 w2 e1 e2 eo yv slot_e].
-  if (tid < kCap) {
-    const int i = tid;
-    const float* a = small + kSmallA;
-    float w[4];
-    for (int j = 0; j < 4; ++j) {
-      float wj = m_mat[i * 4 + j];
-      for (int q = 0; q < j; ++q) wj = wj - a[q * 4 + j] * w[q];
-      w[j] = wj;
-    }
-    float slot_e = i == slot ? 1.0f : 0.0f;
-    float* wr = w_mat + i * 8;
-    wr[0] = w[0];
-    wr[1] = w[1];
-    wr[2] = w[2];
-    wr[3] = u_mat[i * 4 + 0];
-    wr[4] = u_mat[i * 4 + 1];
-    wr[5] = u_mat[i * 4 + 2];
-    wr[6] = w[3] - slot_e;
-    wr[7] = slot_e;
-    const float* c = small + kSmallC;
-    float4* wc = reinterpret_cast<float4*>(wc_mat + i * 8);
-    wc[0] = make_float4(wr[0] * c[0], wr[1] * c[1], wr[2] * c[2],
-                        wr[3] * c[3]);
-    wc[1] = make_float4(wr[4] * c[4], wr[5] * c[5], wr[6] * c[6],
-                        wr[7] * c[7]);
-  }
+  if (tid < kCap)
+    w_row(tid, slot, m_mat + tid * 4, u_mat + tid * 4, small,
+          w_mat + tid * 8, wc_mat + tid * 8);
   __syncthreads();
 
   if (enabled) {
@@ -328,11 +382,7 @@ __device__ __forceinline__ void observe_step(
       acc += b.w * wj[7];
       kinv[i * kKinvStride + j] += acc;
     }
-    if (tid < kCap) act[tid] = act_final_i;
-    if (tid < 4) loc[slot * 4 + tid] = tid == 0 ? x : tid == 1 ? y
-                                     : tid == 2 ? p : t;
-    if (tid == 4) err[slot * 2 + 0] = eu;
-    if (tid == 5) err[slot * 2 + 1] = ev;
+    insert_slot(pl, act, loc, err, x, y, p, t, eu, ev);
     ++count;
   }
   __syncthreads();

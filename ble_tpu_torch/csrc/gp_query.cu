@@ -100,10 +100,11 @@ extern "C" int ble_gp_query(const float* loc, const float* act,
                             const float* q, const float* pres, float* out,
                             int n, int n_levels, int n_slices,
                             cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
+  // The shared memory limit is raised once per process.
+  static const cudaError_t attr = cudaFuncSetAttribute(
       gp_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
+  if (attr != cudaSuccess) return (int)attr;
   if (n > 0 && n_levels > 0 && n_slices > 0) {
     gp_query_kernel<<<dim3(n, n_slices), kThreads, kSmemBytes, stream>>>(
         loc, act, alpha, kinv, q, pres, out, n_levels, n_slices);

@@ -137,10 +137,11 @@ extern "C" int ble_gp_window(const float* obs_seq, const float* loc_in,
                              float* err_out, float* act_out, float* kinv_out,
                              float* alpha_out, int* cnt_out, float* level,
                              int n, int k_steps, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
+  // The shared memory limit is raised once per process.
+  static const cudaError_t attr = cudaFuncSetAttribute(
       gp_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
+  if (attr != cudaSuccess) return (int)attr;
   if (n > 0) {
     gp_window_kernel<<<n, kThreads, kSmemBytes, stream>>>(
         obs_seq, loc_in, err_in, act_in, kinv_in, alpha_in, cnt_in, loc_out,

@@ -8,18 +8,32 @@
 // and compressing, and the battery. Balloons whose status is not OK freeze.
 // The safety remap runs outside, in torch (ops/physics.py).
 //
-// Design: one thread per env, 128 threads a block. Each thread loads its
-// 16 + 3 float/int state fields, 23 atmosphere values, 2 winds and the
-// action once (structure-of-arrays rows, so a warp's loads coalesce), runs
-// the substep loop in registers and writes 16 + 3 fields back. The ACS
-// efficiency table and the layer heights sit in __constant__ memory; the
-// fleet-uniform BalloonParams arrive as a by-value struct.
-//
 // Bound: ~256 B of traffic per env (1 MB at 4096 envs, well under a
 // microsecond at 3.35 TB/s) against ~18 x 1000 float operations, many of
-// them transcendentals. It is latency/occupancy bound: 4096 envs fill only
-// 32 blocks of 132 SMs. Making it fast (several envs per thread for ILP,
-// more, smaller blocks) is later work.
+// them transcendentals. Each env's substeps are one serial dependency
+// chain, so the kernel is bound by that chain's latency, not by any
+// unit's throughput.
+//
+// Design: the sun is taken off the chain. A substep reads lat/lng and the
+// NOAA solar model (two thirds of its operations) at its *starting* x, y
+// and time only, and those advance by constants the loop does not change
+// (x, y by the step's fixed wind times dt, time by the stride). So each CTA
+// of G envs (G from ops/physics.py:env_split, at most 32) runs two phases:
+//   1. the solar track, all threads: for each (env, substep) pair, x and y
+//      by the loop's own sequence of additions, lat/lng, the solar
+//      elevation and flux, and the terms of the attenuation and the panel
+//      power that depend on the elevation alone (614 sin(el), the two
+//      cos x shadow terms), into shared memory, 20 bytes a pair;
+//   2. the serial chain, one thread per env, in registers, reading the
+//      track instead of recomputing it.
+// Substeps past an env's first non-OK status are computed in phase 1 and
+// never read. More than 18 substeps run as chunks of 18, one track each.
+// Each thread loads its 16 + 3 float/int state fields, 23 atmosphere
+// values, 2 winds and the action once (structure-of-arrays rows, so a
+// warp's loads coalesce); the atmosphere's layer is picked by an unrolled
+// select, which keeps the 23 values in registers. The ACS efficiency table
+// and the layer heights sit in __constant__ memory; the fleet-uniform
+// BalloonParams arrive as a by-value struct.
 //
 // Numerics: built with --fmad=false so that every multiply and add rounds
 // on its own, as the plain PyTorch version's separate elementwise ops do;
@@ -28,7 +42,8 @@
 // --use_fast_math). Constants are written as double literals cast to float,
 // which is how Python-float constants reach float32 in the plain version;
 // products of two constants are formed in double and rounded once, as
-// Python does.
+// Python does. The two phases perform the same operations on the same
+// values as one thread running the loop alone, so they give the same bits.
 
 #include <cuda_runtime.h>
 
@@ -58,6 +73,10 @@ constexpr int kNumLayers = 7;
 constexpr int kStatusOk = 0, kStatusOutOfPower = 1, kStatusBurst = 2,
               kStatusZeroPressure = 3;
 constexpr int kDown = 0, kUp = 2;
+// Envs a CTA (ops/physics.py:MAX_ENVS_PER_CTA) and substeps a solar track.
+constexpr int kMaxEnvsPerCta = 32;
+constexpr int kChunk = 18;
+constexpr int kMaxThreads = kMaxEnvsPerCta * kChunk;
 
 __constant__ float kHeights[8] = {
     F(-610.0), F(17000.0), F(21000.0), F(32000.0),
@@ -253,25 +272,32 @@ __device__ void solar_calculator(float lat, float lng, int time_s,
                                           1.0f) * cosf(gma));
 }
 
-__device__ float solar_attenuation(float el_deg, float pressure) {
-  float tmp = 614.0f * sinf(el_deg * F(kDeg));
-  float airmass = F(0.34764) * (pressure / F(101325.0)) *
-                  (sqrtf(F(1229.0) + tmp * tmp) - tmp);
-  float att = 0.5f * (expf(F(-0.65) * airmass) + expf(F(-0.95) * airmass));
-  return el_deg < F(kMinSolarElDeg) ? 0.0f : att;
-}
+// What a substep needs from the sun, at its starting position and time:
+// the elevation (deg) and flux, and the terms of solar_attenuation and
+// solar_power that depend on the elevation alone.
+struct Sun {
+  float el, flux;
+  float sin_term;       // 614 sin(el)
+  float panel35;        // 4 cos(el - 35) shadow(el, 3.3 m)
+  float panel65;        // 2 cos(el - 65) shadow(el, 2.7 m)
+};
+constexpr int kNumSun = 5;
 
 __device__ float shadow(float el_deg, float cutoff) {
   return el_deg >= cutoff ? F(kShadowFactor) : 1.0f;
 }
 
-__device__ float solar_power(float el_deg, float pressure) {
-  float att = solar_attenuation(el_deg, pressure);
-  return F(210.0) * att *
-         (4.0f * cosf((el_deg - 35.0f) * F(kDeg)) *
-              shadow(el_deg, F(kShadowElDeg33)) +
-          2.0f * cosf((el_deg - 65.0f) * F(kDeg)) *
-              shadow(el_deg, F(kShadowElDeg27)));
+__device__ float solar_attenuation(const Sun& sun, float pressure) {
+  const float tmp = sun.sin_term;
+  float airmass = F(0.34764) * (pressure / F(101325.0)) *
+                  (sqrtf(F(1229.0) + tmp * tmp) - tmp);
+  float att = 0.5f * (expf(F(-0.65) * airmass) + expf(F(-0.95) * airmass));
+  return sun.el < F(kMinSolarElDeg) ? 0.0f : att;
+}
+
+__device__ float solar_power(const Sun& sun, float pressure) {
+  float att = solar_attenuation(sun, pressure);
+  return F(210.0) * att * (sun.panel35 + sun.panel65);
 }
 
 // --- env/thermal.py -------------------------------------------------------
@@ -287,16 +313,16 @@ __device__ float total_absorptivity(float a) {
 
 __device__ float d_balloon_temperature_dt(const Params& prm, float volume,
                                           float t_int, float t_amb,
-                                          float pressure, float el_deg,
-                                          float solar_flux, float earth_flux) {
+                                          float pressure, const Sun& sun,
+                                          float earth_flux) {
   float radius = pm_powf(3.0f * volume / F(4.0 * kPi), F(1.0 / 3.0));
   float area = F(4.0 * kPi) * radius * radius;
 
-  float att = solar_attenuation(el_deg, pressure);
+  float att = solar_attenuation(sun, pressure);
   const double a_s = 0.01435;
   const float solar_abs =
       F(a_s * (1.0 + (1.0 - a_s - 0.0291) / (1.0 - 0.0291)));
-  float q_solar = solar_flux * att * F(0.25) * area * solar_abs;
+  float q_solar = sun.flux * att * F(0.25) * area * solar_abs;
 
   float earth_t = pm_powf(earth_flux / F(5.6704e-8), 0.25f);
   float q_earth = earth_flux * F(0.4605) * area *
@@ -354,6 +380,9 @@ __device__ float fan_efficiency(float pr, float pw) {
 
 // --- one substep (env/balloon.py:substep_math) ----------------------------
 
+// The layer is picked by an unrolled select over the seven layers, not by
+// indexing `atmo` at a runtime index, which would put the array in local
+// memory; the values are the same.
 __device__ void at_pressure_temperature(const float* atmo, float pressure,
                                         float* temperature) {
   const float* lapse = atmo;
@@ -363,16 +392,16 @@ __device__ void at_pressure_temperature(const float* atmo, float pressure,
 #pragma unroll
   for (int i = 0; i < kNumLayers; ++i) mask_sum += pressure > pres[i + 1];
   int idx = kNumLayers - mask_sum;
-  float p0 = 0.0f, t0 = 0.0f, l0 = 0.0f, h0 = 0.0f;
-  if (idx < kNumLayers) {
-    p0 = pres[idx];
-    t0 = temps[idx];
-    l0 = lapse[idx];
-    h0 = kHeights[idx];
-  } else {
-    p0 = pres[kNumLayers];
-    t0 = temps[kNumLayers];
-    h0 = kHeights[kNumLayers];
+  // idx == kNumLayers: the top transition, with no lapse rate.
+  float p0 = pres[kNumLayers], t0 = temps[kNumLayers], l0 = 0.0f;
+  float h0 = kHeights[kNumLayers];
+#pragma unroll
+  for (int i = 0; i < kNumLayers; ++i) {
+    const bool here = idx == i;
+    p0 = here ? pres[i] : p0;
+    t0 = here ? temps[i] : t0;
+    l0 = here ? lapse[i] : l0;
+    h0 = here ? kHeights[i] : h0;
   }
   const float r = F(kRDry), g = F(kGravity);
   float height;
@@ -398,9 +427,24 @@ __device__ void latlng_from_offset(float clat, float clng, float x, float y,
   *lng_out = lng - floorf((lng + F(kPi)) / F(2.0 * kPi)) * F(2.0 * kPi);
 }
 
+// The sun at offset (x, y) from (clat, clng) at time_s (phase 1).
+__device__ Sun sun_at(float clat, float clng, float x, float y, int time_s) {
+  float lat, lng;
+  latlng_from_offset(clat, clng, x, y, &lat, &lng);
+  Sun sun;
+  solar_calculator(lat, lng, time_s, &sun.el, &sun.flux);
+  sun.sin_term = 614.0f * sinf(sun.el * F(kDeg));
+  sun.panel35 = 4.0f * cosf((sun.el - 35.0f) * F(kDeg)) *
+                shadow(sun.el, F(kShadowElDeg33));
+  sun.panel65 = 2.0f * cosf((sun.el - 65.0f) * F(kDeg)) *
+                shadow(sun.el, F(kShadowElDeg27));
+  return sun;
+}
+
+// One substep (phase 2) with the sun at its start taken from the track.
 __device__ void substep(const Params& prm, const float* atmo, float wind_u,
-                        float wind_v, int action, int stride_s, float* v,
-                        int* vi) {
+                        float wind_v, int action, int stride_s,
+                        const Sun& sun, float* v, int* vi) {
   const float dt = (float)stride_s;
   const float x = v[kX], y = v[kY], p = v[kPressure];
   const float t_amb = v[kAmbientT], t_int = v[kInternalT];
@@ -427,11 +471,8 @@ __device__ void substep(const Params& prm, const float* atmo, float wind_u,
   float new_p = p + dp_dt * dt;
 
   // Step 3: ambient + internal temperature.
-  float lat, lng, el, flux;
-  latlng_from_offset(v[kCenterLat], v[kCenterLng], x, y, &lat, &lng);
-  solar_calculator(lat, lng, vi[kTime], &el, &flux);
-  float d_int = d_balloon_temperature_dt(prm, volume, t_int, t_amb, p, el,
-                                         flux, v[kUpwellingIr]);
+  float d_int = d_balloon_temperature_dt(prm, volume, t_int, t_amb, p, sun,
+                                         v[kUpwellingIr]);
   float new_t_int = t_int + d_int * dt;
 
   // Step 4: superpressure & volume.
@@ -461,8 +502,8 @@ __device__ void substep(const Params& prm, const float* atmo, float wind_u,
       mols_air + (new_acs_mass_flow / F(kDryAirMolarMass)) * dt, 0.0f);
 
   // Step 6: power & battery.
-  bool is_day = el > F(kMinSolarElDeg);
-  float new_solar = is_day ? solar_power(el, p) : 0.0f;
+  bool is_day = sun.el > F(kMinSolarElDeg);
+  float new_solar = is_day ? solar_power(sun, p) : 0.0f;
   float new_load = (is_day ? prm.daytime_power_load_w
                            : prm.nighttime_power_load_w) + new_acs_power;
   float new_battery = clampf(battery + (new_solar - new_load) * dt, 0.0f,
@@ -491,7 +532,7 @@ __device__ void substep(const Params& prm, const float* atmo, float wind_u,
   vi[kStatus] = status;
 }
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kMaxThreads)
 physics_substeps_kernel(const float* __restrict__ f32_in,
                         const int* __restrict__ i32_in,
                         const float* __restrict__ atmo_in,
@@ -499,53 +540,105 @@ physics_substeps_kernel(const float* __restrict__ f32_in,
                         const int* __restrict__ action_in,
                         float* __restrict__ f32_out,
                         int* __restrict__ i32_out, int n, int num_substeps,
-                        int stride_s, Params prm) {
-  int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
+                        int stride_s, int envs_per_cta, Params prm) {
+  // The solar track of one chunk: [substep][field][env], so that the
+  // serial threads' reads of one field at one substep are consecutive.
+  __shared__ float track[kChunk][kNumSun][kMaxEnvsPerCta];
+  const int e0 = blockIdx.x * envs_per_cta;
+  const int envs = min(envs_per_cta, n - e0);
+  const int tid = threadIdx.x;
+  const bool serial = tid < envs;  // this thread carries env e0 + tid
+  const int e = e0 + tid;
+  const float dt = (float)stride_s;
+
   float v[kNumF32];
   int vi[kNumI32];
   float atmo[kNumAtmo];
+  float wind_u = 0.0f, wind_v = 0.0f;
+  int action = 0;
+  if (serial) {
 #pragma unroll
-  for (int i = 0; i < kNumF32; ++i) v[i] = f32_in[i * n + e];
+    for (int i = 0; i < kNumF32; ++i) v[i] = f32_in[i * n + e];
 #pragma unroll
-  for (int i = 0; i < kNumI32; ++i) vi[i] = i32_in[i * n + e];
+    for (int i = 0; i < kNumI32; ++i) vi[i] = i32_in[i * n + e];
 #pragma unroll
-  for (int i = 0; i < kNumAtmo; ++i) atmo[i] = atmo_in[i * n + e];
-  const float wind_u = wind_in[e], wind_v = wind_in[n + e];
-  const int action = action_in[e];
-
-  for (int s = 0; s < num_substeps; ++s) {
-    if (vi[kStatus] != kStatusOk) break;  // Terminal balloons freeze.
-    substep(prm, atmo, wind_u, wind_v, action, stride_s, v, vi);
+    for (int i = 0; i < kNumAtmo; ++i) atmo[i] = atmo_in[i * n + e];
+    wind_u = wind_in[e];
+    wind_v = wind_in[n + e];
+    action = action_in[e];
   }
 
+  for (int s0 = 0; s0 < num_substeps; s0 += kChunk) {
+    const int chunk = min(kChunk, num_substeps - s0);
+    // Phase 1: the sun at each (env, substep) pair of the chunk, for the
+    // envs still OK at the start; x and y by the loop's own additions.
+    for (int item = tid; item < envs * chunk; item += blockDim.x) {
+      const int g = item % envs, s = item / envs, ee = e0 + g;
+      if (i32_in[kStatus * n + ee] != kStatusOk) continue;
+      const float wu = wind_in[ee], wv = wind_in[n + ee];
+      float x = f32_in[kX * n + ee], y = f32_in[kY * n + ee];
+      for (int k = 0; k < s0 + s; ++k) {
+        x = x + wu * dt;
+        y = y + wv * dt;
+      }
+      const Sun sun = sun_at(f32_in[kCenterLat * n + ee],
+                             f32_in[kCenterLng * n + ee], x, y,
+                             i32_in[kTime * n + ee] + (s0 + s) * stride_s);
+      track[s][0][g] = sun.el;
+      track[s][1][g] = sun.flux;
+      track[s][2][g] = sun.sin_term;
+      track[s][3][g] = sun.panel35;
+      track[s][4][g] = sun.panel65;
+    }
+    __syncthreads();
+    // Phase 2: the serial chain.
+    if (serial) {
+      for (int s = 0; s < chunk; ++s) {
+        if (vi[kStatus] != kStatusOk) break;  // Terminal balloons freeze.
+        const Sun sun{track[s][0][tid], track[s][1][tid], track[s][2][tid],
+                      track[s][3][tid], track[s][4][tid]};
+        substep(prm, atmo, wind_u, wind_v, action, stride_s, sun, v, vi);
+      }
+    }
+    __syncthreads();
+  }
+
+  if (serial) {
 #pragma unroll
-  for (int i = 0; i < kNumF32; ++i) f32_out[i * n + e] = v[i];
+    for (int i = 0; i < kNumF32; ++i) f32_out[i * n + e] = v[i];
 #pragma unroll
-  for (int i = 0; i < kNumI32; ++i) i32_out[i * n + e] = vi[i];
+    for (int i = 0; i < kNumI32; ++i) i32_out[i * n + e] = vi[i];
+  }
 }
 
 }  // namespace
 
 // f32_in (16, n), i32_in (3, n), atmo (23, n) = [lapse x7, temperature
 // transitions x8, pressure transitions x8], wind (2, n), action (n,);
-// params: 11 floats in Params order (host memory). Returns the launch's
+// params: 11 floats in Params order (host memory); envs_per_cta: G in
+// [1, 32], each CTA's envs (ops/physics.py:env_split). Returns the launch's
 // cudaGetLastError().
 extern "C" int ble_physics_substeps(const float* f32_in, const int* i32_in,
                                     const float* atmo, const float* wind,
                                     const int* action, float* f32_out,
                                     int* i32_out, int n, int num_substeps,
-                                    int stride_s, const float* params,
+                                    int stride_s, int envs_per_cta,
+                                    const float* params,
                                     cudaStream_t stream) {
+  if (envs_per_cta < 1 || envs_per_cta > kMaxEnvsPerCta)
+    return (int)cudaErrorInvalidValue;
   Params prm;
   float* dst = reinterpret_cast<float*>(&prm);
   for (int i = 0; i < kNumParams; ++i) dst[i] = params[i];
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
   if (n > 0) {
+    // Threads: every (env, substep) pair of a chunk, in whole warps.
+    const int pairs =
+        envs_per_cta * (num_substeps < kChunk ? num_substeps : kChunk);
+    const int threads = pairs < 32 ? 32 : (pairs + 31) / 32 * 32;
+    const int blocks = (n + envs_per_cta - 1) / envs_per_cta;
     physics_substeps_kernel<<<blocks, threads, 0, stream>>>(
         f32_in, i32_in, atmo, wind, action, f32_out, i32_out, n,
-        num_substeps, stride_s, prm);
+        num_substeps, stride_s, envs_per_cta, prm);
   }
   return (int)cudaGetLastError();
 }

@@ -131,9 +131,24 @@ def solar_calculator(lat_rad, lng_rad, time_s):
   return el_deg, az_deg, flux
 
 
+def elevation_sine_term(el_deg):
+  """614 sin(el): the term of the attenuation's air mass that depends on
+  the elevation alone."""
+  return 614.0 * torch.sin(el_deg * _DEG)
+
+
+def panel_terms(el_deg):
+  """The two terms of the panel power that depend on the elevation alone:
+  4 cos(el - 35) and 2 cos(el - 65), each times its panel's shadow."""
+  return (4 * torch.cos((el_deg - 35) * _DEG) *
+          balloon_shadow(el_deg, _SHADOW_EL_DEG_3_3),
+          2 * torch.cos((el_deg - 65) * _DEG) *
+          balloon_shadow(el_deg, _SHADOW_EL_DEG_2_7))
+
+
 def solar_atmospheric_attenuation(el_deg, pressure_pa):
   """Attenuation factor in [0, 1] (solar.py:177-209)."""
-  tmp_sin_elev = 614.0 * torch.sin(el_deg * _DEG)
+  tmp_sin_elev = elevation_sine_term(el_deg)
   airmass = (0.34764 * (pressure_pa / 101325.0) *
              (torch.sqrt(1229.0 + tmp_sin_elev * tmp_sin_elev) - tmp_sin_elev))
   attenuation = 0.5 * (torch.exp(-0.65 * airmass) +
@@ -151,11 +166,8 @@ def balloon_shadow(el_deg, shadow_el_deg: float):
 def solar_power(el_deg, pressure_pa):
   """Panel power [W]: 4x210W @35deg + 2x210W @65deg (solar.py:515-536)."""
   attenuation = solar_atmospheric_attenuation(el_deg, pressure_pa)
-  return 210.0 * attenuation * (
-      4 * torch.cos((el_deg - 35) * _DEG) *
-      balloon_shadow(el_deg, _SHADOW_EL_DEG_3_3) +
-      2 * torch.cos((el_deg - 65) * _DEG) *
-      balloon_shadow(el_deg, _SHADOW_EL_DEG_2_7))
+  panel35, panel65 = panel_terms(el_deg)
+  return 210.0 * attenuation * (panel35 + panel65)
 
 
 def next_sunrise_sunset(lat_rad, lng_rad, time_s, num_steps: int = 482):

@@ -11,11 +11,14 @@ library as `<library>.log`.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, 'csrc')
@@ -104,6 +107,23 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(library_path(name))
     _loaded[name] = lib
   return lib
+
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str, function: str, argtypes: tuple):
+  """The C entry point `function` of csrc/<name>.cu's library with its
+  ctypes signature (`argtypes`, an int return) set once, when first asked
+  for."""
+  fn = getattr(load(name), function)
+  fn.argtypes = list(argtypes)
+  fn.restype = ctypes.c_int
+  return fn
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+  """The number of SMs of CUDA device `device_index`."""
+  return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def check(status: int, what: str) -> None:

@@ -14,7 +14,6 @@ design: see the note at the top of csrc/gp_query.cu.
 """
 
 import ctypes
-import functools
 
 import torch
 
@@ -26,6 +25,7 @@ _LS = wind_gp.LENGTH_SCALES
 # Levels a warp of the query engine owns (csrc/gp_query_core.cuh:
 # kWarpLevels): a slice holds a whole number of them.
 WARP_LEVELS = 16
+_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 
 
 def slice_levels(n_levels: int, n_slices: int) -> int:
@@ -45,11 +45,6 @@ def level_split(n_envs: int, n_levels: int, n_sms: int) -> int:
     return 1
   want = min(-(-n_sms // max(n_envs, 1)), -(-n_levels // WARP_LEVELS))
   return -(-n_levels // slice_levels(n_levels, want))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-  return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def query_plain(loc, act, alpha, kinv, q, pres):
@@ -91,11 +86,8 @@ def launch(loc, act, alpha, kinv, q, pres):
       ('q', q, (n, 4), torch.float32),
       ('pressures', pres, (levels,), torch.float32)))
   out = torch.empty((n, levels, 3), dtype=torch.float32, device=loc.device)
-  slices = level_split(n, levels, _sm_count(loc.device.index or 0))
-  fn = cuda_build.load('gp_query').ble_gp_query
-  fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-      ctypes.c_void_p]
-  fn.restype = ctypes.c_int
+  slices = level_split(n, levels, cuda_build.sm_count(loc.device.index or 0))
+  fn = cuda_build.entry('gp_query', 'ble_gp_query', _ARGTYPES)
   status = fn(*(a.data_ptr() for a in (loc, act, alpha, kinv, q, pres, out)),
               n, levels, slices,
               torch.cuda.current_stream(loc.device).cuda_stream)

@@ -23,6 +23,7 @@ NUM_LEVELS = 181
 PRES_MIN = 5000.0
 PRES_MAX = 14000.0
 _LS = wind_gp.LENGTH_SCALES
+_ARGTYPES = (ctypes.c_void_p,) * 14 + (ctypes.c_int,) * 2 + (ctypes.c_void_p,)
 
 
 def pressure_levels(device=None):
@@ -43,11 +44,14 @@ def _first_index(mask, iota_f):
   return torch.where(mask, iota_f, float(CAP)).min(dim=-1).values
 
 
-def _observe_core(x, y, p, t, enabled, loc_in, active, kinv, count):
+def _observe_core(x, y, p, t, enabled, loc_in, active, kinv, count,
+                  n_slices=1):
   """Every env's bordered-inverse update (pallas_gp_window._observe_core):
   the clamped Gram-chain pivots from the 4x4 U^T kinv U, applied as one
-  rank-8 update. Returns (locations, active_final, kinv_new, slot mask,
-  count_new)."""
+  rank-8 update. With `n_slices` > 1, U^T kinv U is summed from the
+  partials of that many contiguous row slices in slice order, as the
+  cluster observe (csrc/gp_observe.cu) sums its CTAs'. Returns (locations,
+  active_final, kinv_new, slot mask, count_new)."""
   n = x.shape[0]
   dev = x.device
   iota = torch.arange(CAP, device=dev)
@@ -85,7 +89,11 @@ def _observe_core(x, y, p, t, enabled, loc_in, active, kinv, count):
 
   u_mat = torch.stack([e1, e2, eo, v], dim=-1)  # (E, CAP, 4)
   m_mat = kinv @ u_mat  # (E, CAP, 4)
-  s_mat = u_mat.transpose(1, 2) @ m_mat  # (E, 4, 4)
+  rows = CAP // n_slices
+  s_mat = None  # (E, 4, 4)
+  for r0 in range(0, CAP, rows):
+    part = u_mat[:, r0:r0 + rows].transpose(1, 2) @ m_mat[:, r0:r0 + rows]
+    s_mat = part if s_mat is None else s_mat + part
 
   removing = [e1.sum(-1) > 0.5, e2.sum(-1) > 0.5, eo.sum(-1) > 0.5]
   d_min = 1.0 / d0
@@ -129,18 +137,19 @@ def _observe_core(x, y, p, t, enabled, loc_in, active, kinv, count):
   return locations, active_final, kinv_new, sm, count_new
 
 
-def observe_one(obs, loc_in, err_in, active, kinv, alpha_in, count):
+def observe_one(obs, loc_in, err_in, active, kinv, alpha_in, count,
+                n_slices=1):
   """Every env's observe of one (E, 8) observation row
-  (pallas_gp_observe._run_one): `_observe_core`, then the error-row insert,
-  alpha = kinv' targets and the enabled select of pallas_gp_observe._finish.
-  Returns the new (locations, errors, active as 0/1 float32, kinv, alpha,
-  count)."""
+  (pallas_gp_observe._run_one): `_observe_core` (with `n_slices`), then the
+  error-row insert, alpha = kinv' targets and the enabled select of
+  pallas_gp_observe._finish. Returns the new (locations, errors, active as
+  0/1 float32, kinv, alpha, count)."""
   x, y, p, t = obs[:, 0], obs[:, 1], obs[:, 2], obs[:, 3]
   eu, ev = obs[:, 4], obs[:, 5]
   enabled = obs[:, 6] > 0.5
 
   loc_mid, active_final, kinv_new, sm, count_new = _observe_core(
-      x, y, p, t, enabled, loc_in, active, kinv, count)
+      x, y, p, t, enabled, loc_in, active, kinv, count, n_slices)
 
   err_new = torch.stack([eu, ev], dim=-1)[:, None, :]
   errors = torch.where(sm > 0.5, err_new, err_in)
@@ -216,10 +225,7 @@ def launch(obs, loc, err, act, kinv, alpha, count):
   outs = [torch.empty_like(a) for a in (loc, err, act, kinv, alpha, count)]
   level = torch.empty((k_steps, n, NUM_LEVELS, 3), dtype=torch.float32,
                       device=obs.device)
-  fn = cuda_build.load('gp_window').ble_gp_window
-  fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 2 + [
-      ctypes.c_void_p]
-  fn.restype = ctypes.c_int
+  fn = cuda_build.entry('gp_window', 'ble_gp_window', _ARGTYPES)
   status = fn(*(a.data_ptr() for a in (obs, loc, err, act, kinv, alpha,
                                        count, *outs, level)),
               n, k_steps, torch.cuda.current_stream(obs.device).cuda_stream)

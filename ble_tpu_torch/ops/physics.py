@@ -1,10 +1,13 @@
 """Fused physics substeps: the port of ble_tpu/ops/pallas_physics.py.
 
 `simulate_step_fused` is balloon.simulate_step with the substep loop in
-one kernel (csrc/physics.cu, one thread per env); the once-per-step safety
-remap stays in torch. For CUDA tensors the wrapper launches the kernel; for
-CPU tensors it runs the plain version, `balloon.run_substeps`. There is no
-other fallback.
+one kernel (csrc/physics.cu: CTAs of `env_split` envs, each computing its
+envs' solar track for every substep in parallel, then running each env's
+serial chain on one thread); the once-per-step safety remap stays in
+torch. For CUDA tensors the wrapper launches the kernel; for CPU tensors it
+runs the plain version, `balloon.run_substeps`. There is no other
+fallback. `solar_track_plain` is the plain version of the kernel's first
+phase, for the tests.
 
 TPU kernel replaced: ble_tpu/ops/pallas_physics.py:simulate_substeps_fused.
 Bound and design: see the note at the top of csrc/physics.cu.
@@ -17,8 +20,10 @@ import torch
 
 from ble_tpu_torch.env import atmosphere as atmosphere_lib
 from ble_tpu_torch.env import balloon as balloon_lib
+from ble_tpu_torch.env import solar
 from ble_tpu_torch.ops import cuda_build
 from ble_tpu_torch.utils import constants
+from ble_tpu_torch.utils import spherical
 
 _F32 = balloon_lib.SUBSTEP_F32_FIELDS
 _I32 = balloon_lib.SUBSTEP_I32_FIELDS
@@ -27,6 +32,40 @@ _PARAM_ORDER = (
     'envelope_max_superpressure', 'envelope_cod', 'payload_mass',
     'nighttime_power_load_w', 'daytime_power_load_w',
     'acs_valve_hole_diameter_m', 'battery_capacity_j', 'mols_lift_gas')
+# Envs a CTA at most: the serial threads of a CTA fill one warp.
+MAX_ENVS_PER_CTA = 32
+_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 4 + (
+    ctypes.c_void_p, ctypes.c_void_p)
+
+
+def env_split(n_envs: int, n_sms: int) -> int:
+  """Envs G of each CTA for a batch of `n_envs` on a card with `n_sms`
+  SMs: as few as spread the batch over every SM, at least 1 and at most
+  MAX_ENVS_PER_CTA (csrc/physics.cu's `envs_per_cta`). CTA b takes envs
+  [b G, min(n_envs, b G + G))."""
+  return min(max(-(-n_envs // n_sms), 1), MAX_ENVS_PER_CTA)
+
+
+def solar_track_plain(state: balloon_lib.BalloonState, wind_u, wind_v,
+                      num_substeps: int, stride_s: int):
+  """The plain version of the physics kernel's first phase: for each env
+  and substep s, what substep s of balloon.substep_math takes from the sun
+  if the balloon is still OK there: (E, num_substeps, 5) = [elevation
+  (deg), flux, solar.elevation_sine_term, solar.panel_terms], at x and y
+  advanced s times by the wind and at time_s + s * stride_s."""
+  dt = float(stride_s)
+  x, y = state.x_m, state.y_m
+  rows = []
+  for s in range(num_substeps):
+    lat, lng = spherical.latlng_from_offset(
+        state.center_lat_rad, state.center_lng_rad, x, y)
+    el, _, flux = solar.solar_calculator(lat, lng,
+                                         state.time_s + s * stride_s)
+    rows.append(torch.stack([el, flux, solar.elevation_sine_term(el),
+                             *solar.panel_terms(el)], dim=-1))
+    x = x + wind_u * dt
+    y = y + wind_v * dt
+  return torch.stack(rows, dim=1)
 
 
 def uniform_params(params: balloon_lib.BalloonParams):
@@ -58,9 +97,11 @@ def pack(state: balloon_lib.BalloonState,
 
 
 def launch(f32, i32, atmo, wind, action, f32_out, i32_out,
-           num_substeps: int, stride_s: int, params_c) -> None:
+           num_substeps: int, stride_s: int, params_c,
+           envs_per_cta=None) -> None:
   """One launch of csrc/physics.cu on packed CUDA buffers (see `pack`), on
-  the current stream; adds one to `launch.launches`."""
+  the current stream, `envs_per_cta` envs a CTA (default `env_split`'s);
+  adds one to `launch.launches`."""
   n = f32.shape[1]
   for name, a, shape, dtype in (
       ('f32', f32, (len(_F32), n), torch.float32),
@@ -75,13 +116,12 @@ def launch(f32, i32, atmo, wind, action, f32_out, i32_out,
       raise ValueError(f'{name}: expected a contiguous {dtype} {shape} on '
                        f'{f32.device}, got {a.dtype} {tuple(a.shape)} on '
                        f'{a.device}')
-  fn = cuda_build.load('physics').ble_physics_substeps
-  fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-      ctypes.c_void_p, ctypes.c_void_p]
-  fn.restype = ctypes.c_int
+  if envs_per_cta is None:
+    envs_per_cta = env_split(n, cuda_build.sm_count(f32.device.index or 0))
+  fn = cuda_build.entry('physics', 'ble_physics_substeps', _ARGTYPES)
   status = fn(f32.data_ptr(), i32.data_ptr(), atmo.data_ptr(),
               wind.data_ptr(), action.data_ptr(), f32_out.data_ptr(),
-              i32_out.data_ptr(), n, num_substeps, stride_s,
+              i32_out.data_ptr(), n, num_substeps, stride_s, envs_per_cta,
               ctypes.addressof(params_c),
               torch.cuda.current_stream(f32.device).cuda_stream)
   cuda_build.check(status, 'ble_physics_substeps')

@@ -8,18 +8,22 @@ each of its hand-written CUDA kernels against its plain PyTorch version.
 Phases (each raises on a failure, so the exit code is then not 0):
   device     requires CUDA; prints the card's name and power limit.
   build      compiles every csrc/*.cu for sm_90a, one nvcc each, in
-             parallel, and prints ptxas's registers and spills, each GP
-             kernel's shared memory and CTAs a SM, and the FMA and
-             shared-load counts of its SASS.
+             parallel, and prints ptxas's registers, stack frame and spills
+             of each kernel, each GP kernel's shared memory and CTAs a SM
+             (for B3's cluster kernel at each cluster size also the
+             clusters resident at once), and the FMA and shared-load counts
+             of its SASS.
   kernels    each kernel against its plain version on the same CUDA
-             inputs: B1, the physics substeps, at E = 4096 envs and 18
-             substeps on states from the port's own reset; B2, the GP
-             window, at E = 4096 for K = 1 and K = 8 on a GP state warmed
-             through expiries and ring wraparound; the GP observe at E = 1
-             (B3) and E = 4096 (B4, every 4th env disabled); the column
-             query (B5) at E = 1, 7, 131 and 4096 (the edges of its level
-             split) at N = 181 and 37, and on empty states (exactly 0);
-             and the 960-step churn-drift track through B3.
+             inputs: B1, the physics substeps, at E = 1, 7, 131 (one env a
+             CTA) and 4096 (32 a CTA) and 18 substeps on states from the
+             port's own reset; B2, the GP window, at E = 4096 for K = 1
+             and K = 8 on a GP state warmed through expiries and ring
+             wraparound; the GP observe through its cluster path at E = 1,
+             2 and 7 (B3) and its one-CTA-an-env path at E = 4096 (B4),
+             with disabled envs; the column query (B5) at E = 1, 7, 131 and
+             4096 (the edges of its level split) at N = 181 and 37, and on
+             empty states (exactly 0); and the 960-step churn-drift track
+             through B3. Each check logs the split its launch used.
   reference  an 8-env, 32-step StationSeeker eval on the card (kernels)
              against the same eval on the CPU (plain versions).
   gym        this slice's path: BalloonEnv(wind_field='generative'), 128
@@ -36,10 +40,11 @@ Phases (each raises on a failure, so the exit code is then not 0):
              initial state: the first run is counted, the second timed.
   timing     each kernel at its path's shapes with CUDA events, beside its
              plain version, a library call where one computes the same
-             function or its dominant term, and its bound; for B3, B4 and
-             B5 also the kernels' own device time under torch.profiler
+             function or its dominant term, and its bound; for B1, B3, B4
+             and B5 also the kernels' own device time under torch.profiler
              (at E = 1 the events time the host's launch path), and for
-             B2 and B5 at 4096 the SM clock and power under load.
+             the library calls of B3, B4 and B5 theirs; for B2 and B5 at
+             4096 the SM clock and power under load.
   numerics   (not in the default set) B1's kernel, its plain version on
              the card and on the CPU against each other after 1 and 18
              substeps.
@@ -52,6 +57,10 @@ Phases (each raises on a failure, so the exit code is then not 0):
   tile       (not in the default set) the GP query engine's product loop
              alone in four forms (csrc/bench/product_tile.cu): what bounds
              it, shared loads or FMAs.
+  splits     (not in the default set) the device time of the designs the
+             kernels' splits choose between: B3 at E = 1 and 7 on one CTA
+             an env and on clusters of 2, 4 and 8; B1 at E = 4096 with 8,
+             16 and 32 envs a CTA.
 
 The generative fields come from the VAE decoder's deterministic fallback
 (models/loader.py): no trained decoder is in the repository.
@@ -67,6 +76,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -245,8 +255,24 @@ def b1_inputs(params, state):
   return b, act, bufs
 
 
+def first_env_state(state, n: int):
+  """The first n envs of an env state's balloon, atmosphere and winds:
+  what B1 reads."""
+  def head(obj):
+    if dataclasses.is_dataclass(obj):
+      return dataclasses.replace(obj, **{
+          f.name: head(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+    return obj[:n]
+  return types.SimpleNamespace(balloon=head(state.balloon),
+                               atmosphere=head(state.atmosphere),
+                               wind_u=state.wind_u[:n], wind_v=state.wind_v[:n])
+
+
 def check_b1(params, state) -> dict:
+  """B1 against its plain version, 18 substeps from `state` with random
+  actions: int fields and statuses equal, floats to B1_ATOL/B1_RTOL."""
   from ble_tpu_torch.env import balloon as balloon_lib
+  from ble_tpu_torch.ops import cuda_build
   from ble_tpu_torch.ops import physics
   b, act, bufs = b1_inputs(params, state)
   got = physics.substeps_kernel(params.balloon, state.atmosphere, b,
@@ -269,8 +295,18 @@ def check_b1(params, state) -> dict:
   for name, over in excess.items():
     check(over <= 0, f'B1 {name} exceeds its tolerance by {over}')
   statuses = torch.bincount(got.status.long(), minlength=4).tolist()
-  log(f'B1 ok: E={b.x_m.shape[0]}, 18 substeps, statuses after {statuses}')
+  n = b.x_m.shape[0]
+  log(f'B1 ok: E={n} G={physics.env_split(n, cuda_build.sm_count(0))}, 18 '
+      f'substeps, statuses after {statuses}')
   return {'max_abs_err': errs['pressure_pa']}
+
+
+def check_b1_split(params, state) -> dict:
+  """B1 at E = 1, 7, 131 (one env a CTA) and 4096 (32 envs a CTA), the
+  first envs of `state`. Returns the reading at 4096, the main path's."""
+  for n in (1, 7, 131):
+    check_b1(params, first_env_state(state, n))
+  return check_b1(params, state)
 
 
 def phase_numerics(params, state) -> None:
@@ -500,8 +536,12 @@ def gp_track_state(n: int, steps: int, seed: int = 0):
 def check_b3_b4(state, obs, name: str) -> dict:
   """The observe kernel against its plain version from `state` on one
   observation row: slot bookkeeping exactly, kinv and alpha to B3_ATOL,
-  and envs whose enabled flag is 0 exactly unchanged."""
+  and envs whose enabled flag is 0 exactly unchanged. B3 must take the
+  cluster path (S > 1), B4 the one-CTA-per-env path."""
+  from ble_tpu_torch.ops import cuda_build
   from ble_tpu_torch.ops import gp_observe
+  split = gp_observe.observe_split(obs.shape[0], cuda_build.sm_count(0))
+  check((split > 1) == (name == 'B3'), f'{name} took split {split}')
   got = gp_observe.observe_kernel(state, obs)
   want = gp_observe.observe_plain(state, obs)
   torch.cuda.synchronize()
@@ -514,8 +554,8 @@ def check_b3_b4(state, obs, name: str) -> dict:
           f'{name} disabled envs changed {field}')
   errs = {f: float((getattr(got, f) - getattr(want, f)).abs().max())
           for f in ('kinv', 'alpha')}
-  log(f'{name} E={obs.shape[0]} ({int(off.sum())} disabled) max |kernel - '
-      f'plain|:', json.dumps(errs))
+  log(f'{name} E={obs.shape[0]} S={split} ({int(off.sum())} disabled) max '
+      f'|kernel - plain|:', json.dumps(errs))
   for f, err in errs.items():
     check(err <= B3_ATOL, f'{name} {f} error {err} > {B3_ATOL}')
   return {'max_abs_err': max(errs.values())}
@@ -561,6 +601,7 @@ def check_b5(state, xs, ys, ts, name: str, n_levels: int = 181) -> dict:
   """The column-query kernel against its plain version at the 181 feature
   levels (or at n_levels pressures spread over the same span): means and
   deviations to B5_ATOL, shapes and finiteness."""
+  from ble_tpu_torch.ops import cuda_build
   from ble_tpu_torch.ops import gp_query
   from ble_tpu_torch.ops import gp_window
   pres = (gp_window.pressure_levels(DEV) if n_levels == 181 else
@@ -574,7 +615,7 @@ def check_b5(state, xs, ys, ts, name: str, n_levels: int = 181) -> dict:
   check(bool(torch.isfinite(got).all()), f'{name} not finite')
   errs = {'means': float((got[..., :2] - want[..., :2]).abs().max()),
           'deviations': float((got[..., 2] - want[..., 2]).abs().max())}
-  slices = gp_query.level_split(n, n_levels, gp_query._sm_count(0))
+  slices = gp_query.level_split(n, n_levels, cuda_build.sm_count(0))
   log(f'{name} E={n} N={n_levels} S={slices} max |kernel - plain|:',
       json.dumps(errs))
   for f, err in errs.items():
@@ -616,11 +657,19 @@ def check_b5_split(gp_state, state1, obs1, obs) -> dict:
 
 
 def check_b3_b4_b5(gp_state) -> dict:
-  """B3 at E = 1 and B4 at E = 4096 from warmed states (odd step: every
-  4th env disabled), B5 at the edges of its level split, and B3's drift
-  track."""
+  """B3 through the cluster path at E = 1, 2 and 7 (the last env disabled
+  at E = 2 and 7, and env 3 at 7) and B4 through the per-env path at
+  E = 4096 (odd step: every 4th env disabled), each from a state warmed
+  past the ring and the expiry window; B5 at the edges of its level split;
+  and B3's drift track."""
   state1, obs1 = gp_track_state(1, 140, seed=5)
-  errs = {'gp_observe_b3': check_b3_b4(state1, obs1, 'B3')}
+  b3 = [check_b3_b4(state1, obs1, 'B3')['max_abs_err']]
+  for n in (2, 7):
+    st, ob = gp_track_state(n, 141, seed=5)
+    ob = ob.clone()
+    ob[n - 1, 6] = 0.0
+    b3.append(check_b3_b4(st, ob, 'B3')['max_abs_err'])
+  errs = {'gp_observe_b3': {'max_abs_err': max(b3)}}
   obs = gp_obs_seq(1, 2, E, t0_step=140)[1]
   errs['gp_observe_b4'] = check_b3_b4(gp_state, obs, 'B4')
   errs.update(check_b5_split(gp_state, state1, obs1, obs))
@@ -673,7 +722,8 @@ def phase_build():
   for name in cuda_build.SOURCES:
     with open(cuda_build.library_path(name) + '.log') as f:
       for line in f:
-        if 'registers' in line or 'spill' in line or 'smem' in line:
+        if ('registers' in line or 'spill' in line or 'smem' in line or
+            'Function properties' in line):
           log(f'  ptxas {name}: {line.strip()}')
     lib = cuda_build.load(name)
     info_fn = getattr(lib, f'ble_{name}_info', None)
@@ -683,8 +733,58 @@ def phase_build():
       cuda_build.check(info_fn(ctypes.addressof(info)), f'ble_{name}_info')
       log(f'  {name}: {info[0]} bytes of dynamic shared memory, {info[1]} '
           f'CTAs a SM')
+    cluster_fn = getattr(lib, f'ble_{name}_cluster_info', None)
+    if cluster_fn is not None:
+      cluster_fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+      for split in (2, 4, 8):
+        info = (ctypes.c_int * 3)()
+        cuda_build.check(cluster_fn(split, ctypes.addressof(info)),
+                         f'ble_{name}_cluster_info')
+        log(f'  {name} cluster of {split}: {info[0]} bytes of dynamic '
+            f'shared memory a CTA, {info[1]} CTAs a SM, {info[2]} clusters '
+            f'resident at once')
     for kernel, mix in sass_mix(cuda_build.library_path(name)).items():
       log(f'  sass {name} {kernel}: {json.dumps(mix)}')
+
+
+def phase_splits(params, state) -> None:
+  """The designs the splits choose between, each timed by its device time
+  (torch.profiler): B3 at E = 1 and 7 (warmed states) on one CTA an env and
+  on clusters of 2, 4 and 8, with the CUDA-event time of back-to-back
+  launches (the host's launch path at this size) and each one's max
+  |kernel - plain| of kinv; B1 at E = 4096 with 8, 16 and 32 envs a CTA,
+  whose outputs must be the same bits."""
+  from ble_tpu_torch.ops import gp_observe
+  from ble_tpu_torch.ops import physics
+  f32 = lambda a: a.to(torch.float32).contiguous()
+  for n in (1, 7):
+    st, ob = gp_track_state(n, 140, seed=5)
+    args = (ob, f32(st.locations), f32(st.errors), f32(st.active),
+            f32(st.kinv), f32(st.alpha), st.count.to(torch.int32).contiguous())
+    want = gp_observe.observe_plain(st, ob)
+    row = {}
+    for split in (1, 2, 4, 8):
+      run = lambda: gp_observe.launch(*args, split=split)
+      err = float((run()[3] - want.kinv).abs().max())
+      row[f'S={split}'] = [kernel_device_ms(run), cuda_ms(run, reps=100),
+                           err]
+    log(f'splits: B3 E={n} [device ms, event ms, kinv error] by cluster '
+        f'size:', json.dumps(row))
+  _, _, bufs = b1_inputs(params, state)
+  params_c = physics.uniform_params(params.balloon)
+  row, first = {}, None
+  for g in (8, 16, 32):
+    outs = (torch.empty_like(bufs[0]), torch.empty_like(bufs[1]))
+    run = lambda: physics.launch(*bufs, *outs, 18, 10, params_c,
+                                 envs_per_cta=g)
+    run()
+    if first is None:
+      first = outs
+    check(torch.equal(outs[0], first[0]) and torch.equal(outs[1], first[1]),
+          f'B1 with {g} envs a CTA differs')
+    row[f'G={g}'] = kernel_device_ms(run)
+  log(f'splits: B1 E={E} device ms by envs a CTA (same bits):',
+      json.dumps(row))
 
 
 def phase_tile() -> None:
@@ -997,6 +1097,7 @@ def phase_main(params, field_fn, state0, obs0) -> dict:
 def time_b1(params, state) -> dict:
   """B1 at the batch of `state` with random actions."""
   from ble_tpu_torch.env import balloon as balloon_lib
+  from ble_tpu_torch.ops import cuda_build
   from ble_tpu_torch.ops import physics
   b, act, bufs = b1_inputs(params, state)
   f32_out, i32_out = torch.empty_like(bufs[0]), torch.empty_like(bufs[1])
@@ -1013,8 +1114,12 @@ def time_b1(params, state) -> dict:
   by_class = b1_ops_ms(substeps)
   nbytes = 4.0 * b.x_m.shape[0] * (16 + 3 + 23 + 2 + 1 + 16 + 3)
   row = _bound_row(ms, plain_ms, None, max(by_class.values()), nbytes)
+  row['device_ms'] = kernel_device_ms(lambda: physics.launch(
+      *bufs, f32_out, i32_out, 18, 10, params_c))
   row['ops_ms_by_class'] = by_class
   row['substeps_run'] = substeps
+  row['envs_per_cta'] = physics.env_split(b.x_m.shape[0],
+                                          cuda_build.sm_count(0))
   return row
 
 
@@ -1022,6 +1127,7 @@ def time_b5(gp_state, xs, ys, ts) -> dict:
   """B5 at the batch of `gp_state` and the 181 feature levels, each env's
   column at its (x, y, t). The library yardstick: one batched float32
   matmul of k* by kinv, its dominant term (never called by the port)."""
+  from ble_tpu_torch.ops import cuda_build
   from ble_tpu_torch.ops import gp_query
   from ble_tpu_torch.ops import gp_window
   args = gp_query.pack(gp_state, xs, ys, ts, gp_window.pressure_levels(DEV))
@@ -1036,7 +1142,7 @@ def time_b5(gp_state, xs, ys, ts) -> dict:
                    query_bytes(n, 181))
   row['device_ms'] = kernel_device_ms(lambda: gp_query.launch(*args))
   row['library_device_ms'] = kernel_device_ms(lambda: torch.bmm(k_star, kinv))
-  row['slices'] = gp_query.level_split(n, 181, gp_query._sm_count(0))
+  row['slices'] = gp_query.level_split(n, 181, cuda_build.sm_count(0))
   if n > 1:
     row.update(clock_under_load(lambda: gp_query.launch(*args)))
   return row
@@ -1075,6 +1181,7 @@ def phase_timing(params, state, gp_state, gym_state) -> dict:
   # B3 (E = 1) and B4 (E = 4096): the observe alone. The library yardstick
   # is one batched float32 baddbmm of its rank-8 update, kinv + (W c) W^T,
   # its only full read and write of kinv (never called by the port).
+  from ble_tpu_torch.ops import cuda_build
   from ble_tpu_torch.ops import gp_observe
   state1, obs1 = gp_track_state(1, 140, seed=5)
   for name, st, ob in (('gp_observe_b3', state1, obs1),
@@ -1085,14 +1192,16 @@ def phase_timing(params, state, gp_state, gym_state) -> dict:
     ms = cuda_ms(lambda: gp_observe.launch(*args), reps=50)
     plain_ms = cuda_ms(lambda: gp_observe.observe_plain(st, ob), reps=5)
     w = torch.rand((n, 128, 8), device=DEV)
-    library_ms = cuda_ms(lambda: torch.baddbmm(st.kinv, w, w.transpose(1, 2)),
-                         reps=20)
+    library = lambda: torch.baddbmm(st.kinv, w, w.transpose(1, 2))
+    library_ms = cuda_ms(library, reps=20)
     enabled = float((ob[:, 6] > 0.5).sum())
     out[name] = _bound_row(ms, plain_ms, library_ms,
                            1e3 * enabled * OBSERVE_OPS / PEAK_F32_FLOPS,
                            observe_bytes(n))
     out[name]['device_ms'] = kernel_device_ms(
         lambda: gp_observe.launch(*args))
+    out[name]['library_device_ms'] = kernel_device_ms(library)
+    out[name]['split'] = gp_observe.observe_split(n, cuda_build.sm_count(0))
 
   out['gp_query_pair'] = time_b5(gp_state, obs[0, :, 0], obs[0, :, 1],
                                  obs[0, :, 3])
@@ -1191,7 +1300,7 @@ def main(argv=None) -> int:
                       help='comma-separated subset of: ' +
                       ', '.join(DEFAULT_PHASES +
                                 ('numerics', 'calibrate', 'profile',
-                                 'tile')))
+                                 'tile', 'splits')))
   args = parser.parse_args(argv)
   phases = set(args.phases.split(','))
 
@@ -1213,9 +1322,11 @@ def main(argv=None) -> int:
 
   params = env_lib.EnvParams(field_cache=True)
   field_fn = state0 = obs0 = gp_state = None
-  if phases & {'kernels', 'pair', 'main', 'timing', 'numerics', 'profile'}:
+  if phases & {'kernels', 'pair', 'main', 'timing', 'numerics', 'profile',
+                'splits'}:
     field_fn = generative_field_fn()
-  if phases & {'kernels', 'main', 'timing', 'numerics', 'profile'}:
+  if phases & {'kernels', 'main', 'timing', 'numerics', 'profile',
+                'splits'}:
     state0, obs0 = reset_main(params, field_fn)
   errs = {}
   if phases & {'kernels', 'timing'}:
@@ -1225,7 +1336,7 @@ def main(argv=None) -> int:
     log(f'warmed GP state: E={E}, 140 observations, '
         f'{time.perf_counter() - t:.2f} s')
   if 'kernels' in phases:
-    errs['physics'] = check_b1(params, state0)
+    errs['physics'] = check_b1_split(params, state0)
     e1 = check_b2(gp_state, 1)
     e8 = check_b2(gp_state, 8)
     errs['gp_window'] = {'max_abs_err': max(e1['max_abs_err'],
@@ -1233,6 +1344,8 @@ def main(argv=None) -> int:
     errs.update(check_b3_b4_b5(gp_state))
   if 'numerics' in phases:
     phase_numerics(params, state0)
+  if 'splits' in phases:
+    phase_splits(params, state0)
   if 'calibrate' in phases:
     phase_calibrate()
   if 'reference' in phases:
@@ -1284,7 +1397,8 @@ def main(argv=None) -> int:
            'launches': launches.get(name),
            'max_abs_err': errs.get(name, {}).get('max_abs_err')}
     t = timing.get(name, {})
-    for key in ('ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms'):
+    for key in ('ms', 'device_ms', 'plain_ms', 'bound_ms', 'bound_by',
+                'library_ms', 'library_device_ms'):
       row[key] = t.get(key)
     rows.append(row)
     if t:

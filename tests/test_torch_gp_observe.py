@@ -161,3 +161,81 @@ def test_observe_plain_960_step_churn_drift(refresh_period):
   dev_drift = float((inc[1] - ex[1]).abs().max())
   assert mean_drift < 5e-2, mean_drift  # m/s
   assert dev_drift < 1e-3, dev_drift
+
+
+@pytest.mark.parametrize('n_sms', [114, 132])
+@pytest.mark.parametrize('n_envs', [1, 2, 7, 20, 66, 131, 132, 4096])
+def test_observe_split_covers_every_row_once(n_envs, n_sms):
+  """The cluster observe's split: S in {1, 2, 4, 8} dividing the 128 rows
+  into S slices that cover each row once; 1 when the envs alone fill the
+  card; else the least power of two giving every SM a CTA, at most 8."""
+  split = gp_observe.observe_split(n_envs, n_sms)
+  assert split in (1, 2, 4, 8) and wind_gp.CAPACITY % split == 0
+  rows = wind_gp.CAPACITY // split
+  covered = np.zeros(wind_gp.CAPACITY, np.int64)
+  for rank in range(split):
+    covered[rank * rows:(rank + 1) * rows] += 1
+  np.testing.assert_array_equal(covered, 1)
+  if n_envs >= n_sms:
+    assert split == 1
+  else:
+    assert n_envs * split >= n_sms or split == gp_observe.MAX_SPLIT
+    assert split == 1 or n_envs * (split // 2) < n_sms
+
+
+def _two_env_track(n_obs):
+  """(n_obs, 2, 8) rows: env 0 on a track 180 s apart with a 6.5 h jump
+  at step 100 (expiries two at a time, then the window churning), env 1
+  60 s apart and disabled every 20th step (the ring evicts live points
+  from its 129th enabled observation on)."""
+  rows = np.zeros((n_obs, 2, 8), np.float32)
+  for env, (seed, dt_s) in enumerate(((20, 180.0), (21, 60.0))):
+    for i, (x, y, p, _, eu, ev) in enumerate(_track(seed, n_obs)):
+      t = dt_s * (i + 1) + (6.5 * 3600 if env == 0 and i >= 100 else 0.0)
+      rows[i, env, :6] = (x, y, p, t, eu, ev)
+  rows[:, 0, 6] = 1.0
+  rows[:, 1, 6] = np.arange(n_obs) % 20 != 3
+  return torch.from_numpy(rows)
+
+
+@pytest.mark.parametrize('n_slices', [1, 2, 8])
+def test_observe_sliced_plain_matches_observe_plain_along_track(n_slices):
+  """The plain sliced observe (the cluster kernel's pivot sum) against
+  the plain observe over 140 observations with expiries, ring evictions
+  and a disabled env: slot bookkeeping exactly at every step, a disabled
+  observe an exact no-op, kinv and alpha within B3's tolerance."""
+  rows = _two_env_track(140)
+  sliced = plain = wind_gp.init(2)
+  for k in range(rows.shape[0]):
+    before = sliced
+    sliced = gp_observe.observe_sliced_plain(sliced, rows[k], n_slices)
+    plain = gp_observe.observe_plain(plain, rows[k])
+    for f in ('active', 'count', 'locations', 'errors'):
+      assert torch.equal(getattr(sliced, f), getattr(plain, f)), (k, f)
+    if rows[k, 1, 6] < 0.5:
+      for f in dataclasses.fields(before):
+        assert torch.equal(getattr(sliced, f.name)[1],
+                           getattr(before, f.name)[1]), (k, f.name)
+  assert int(plain.count[0]) == 140 and int(plain.count[1]) == 133
+  assert int(plain.active[0].sum()) < 128 and bool(plain.active[1].all())
+  np.testing.assert_allclose(sliced.kinv.numpy(), plain.kinv.numpy(),
+                             atol=5e-3)
+  np.testing.assert_allclose(sliced.alpha.numpy(), plain.alpha.numpy(),
+                             atol=5e-3)
+
+
+@pytest.mark.parametrize('n_slices', [2, 8])
+def test_observe_sliced_plain_expiry_track_matches_pallas_interpret(
+    n_slices):
+  """test_observe_plain_expiry_track_matches_pallas_interpret for the
+  plain sliced observe."""
+  rows = _track(1, 30)
+  rows = rows[:20] + [(x, y, p, t + 6.5 * 3600, eu, ev)
+                      for (x, y, p, t, eu, ev) in rows[20:]]
+  jstate = jax_gp.init()
+  state = _to_port(jstate)
+  for row in rows:
+    jstate = pallas_gp_observe.observe(jstate, *row, interpret=True)
+    state = gp_observe.observe_sliced_plain(state, _obs([row]), n_slices)
+  assert int(state.active.sum()) < 20
+  _assert_state_close(state, jstate, atol=5e-4)

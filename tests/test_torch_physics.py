@@ -30,6 +30,7 @@ from ble_tpu_torch.env import safety
 from ble_tpu_torch.env import solar
 from ble_tpu_torch.ops import physics
 from ble_tpu_torch.ops import pmath
+from ble_tpu_torch.utils import spherical
 from ble_tpu_torch.utils import time_lib
 
 _DIR = os.path.dirname(__file__)
@@ -293,3 +294,70 @@ def test_layer_seam_state_stays_finite():
         torch.zeros(n, dtype=torch.int32))
   for name in balloon.SUBSTEP_F32_FIELDS:
     assert bool(torch.isfinite(getattr(state, name)).all()), name
+
+
+def test_solar_track_plain_is_what_each_substep_reads(world, monkeypatch):
+  """The plain version of the physics kernel's first phase against the
+  sun that balloon.run_substeps's own substeps see: at each of 18
+  substeps, for every balloon still OK there, the elevation, flux and the
+  elevation-only terms of the attenuation and panel power, bit for bit, on
+  the 8 drawn worlds. Two balloons, with 10 kJ left at night, run out of
+  power mid-step; their later substeps are not compared."""
+  state, atmo = world
+  tstate, tatmo = _to_port(state, atmo)
+  battery = tstate.battery_charge_j.clone()
+  battery[[4, 6]] = 10000.0
+  tstate = dataclasses.replace(tstate, battery_charge_j=battery)
+  rng = np.random.RandomState(2)
+  wu = torch.from_numpy(rng.normal(0, 8, E).astype(np.float32))
+  wv = torch.from_numpy(rng.normal(0, 8, E).astype(np.float32))
+  params = balloon.BalloonParams()
+  b, act = balloon.apply_safety(params, tatmo, tstate,
+                                torch.zeros(E, dtype=torch.int32))
+  seen = []
+  substep_math = balloon.substep_math
+
+  def recording(params, atmosphere, v, *args):
+    seen.append(dict(v))
+    return substep_math(params, atmosphere, v, *args)
+
+  monkeypatch.setattr(balloon, 'substep_math', recording)
+  out = balloon.run_substeps(params, tatmo, b, wu, wv, act, 18, 10)
+  elapsed = out.time_elapsed_s - b.time_elapsed_s
+  assert out.status[4] != balloon.STATUS_OK and 0 < elapsed[4] < 180
+  assert out.status[6] != balloon.STATUS_OK and 0 < elapsed[6] < 180
+
+  track = physics.solar_track_plain(b, wu, wv, 18, 10)
+  assert track.shape == (E, 18, 5)
+  for s, v in enumerate(seen):
+    ok = v['status'] == balloon.STATUS_OK
+    lat, lng = spherical.latlng_from_offset(
+        v['center_lat_rad'], v['center_lng_rad'], v['x_m'], v['y_m'])
+    el, _, flux = solar.solar_calculator(lat, lng, v['time_s'])
+    want = torch.stack([el, flux, solar.elevation_sine_term(el),
+                        *solar.panel_terms(el)], dim=-1)
+    assert torch.equal(track[:, s][ok], want[ok]), s
+  assert int((track[:, :, 0] > solar.MIN_SOLAR_EL_DEG).sum()) > 0
+
+
+@pytest.mark.parametrize('n_sms', [114, 132])
+@pytest.mark.parametrize('n_envs', [1, 7, 131, 132, 133, 1000, 4096])
+def test_env_split_covers_every_env_once(n_envs, n_sms):
+  """B1's CTAs of G envs: every env in exactly one CTA, no CTA empty,
+  G <= 32, one env a CTA while the envs do not fill the card, and below
+  32 the least G that keeps to one CTA a SM."""
+  g = physics.env_split(n_envs, n_sms)
+  assert 1 <= g <= physics.MAX_ENVS_PER_CTA
+  ctas = -(-n_envs // g)
+  covered = np.zeros(n_envs, np.int64)
+  for b in range(ctas):
+    begin, end = b * g, min(n_envs, b * g + g)
+    assert begin < end
+    covered[begin:end] += 1
+  np.testing.assert_array_equal(covered, 1)
+  if n_envs <= n_sms:
+    assert g == 1
+  if g < physics.MAX_ENVS_PER_CTA:
+    assert ctas <= n_sms
+  if g > 1:
+    assert -(-n_envs // (g - 1)) > n_sms
