@@ -5,7 +5,7 @@ agents/agent.py:149-162).
 A target pressure performs a Gaussian random walk whose step grows with the
 episode time elapsed (random_walk_agent.py:80-91), and the policy chases it
 with 100 Pa hysteresis. Draws come from a torch.Generator, and the state
-lives, on the CPU; actions go to the observations' device.
+lives, on the generator's device; actions go to the observations' device.
 """
 
 import dataclasses
@@ -31,10 +31,11 @@ class RandomWalkState:
 def init(n: int, generator: torch.Generator) -> RandomWalkState:
   """Fresh target pressures in [6500, 11400) Pa (random_walk_agent.py:58-60:
   sample_pressure without an atmosphere uses the conservative 11400 Pa)."""
-  target = 6500.0 + torch.rand((n,), generator=generator) * (11400.0 -
-                                                             6500.0)
+  dev = generator.device
+  target = 6500.0 + torch.rand((n,), generator=generator, device=dev) * (
+      11400.0 - 6500.0)
   return RandomWalkState(target_pressure=target,
-                         time_elapsed_s=torch.zeros((n,)))
+                         time_elapsed_s=torch.zeros((n,), device=dev))
 
 
 def select_action(state: RandomWalkState, observation):
@@ -53,8 +54,8 @@ def step(state: RandomWalkState, observation, generator: torch.Generator):
   """Drifts each target and picks the actions (random_walk_agent.py:80-91)."""
   n = state.target_pressure.shape[0]
   elapsed = state.time_elapsed_s + constants.AGENT_TIME_STEP_SECONDS
-  target = (state.target_pressure +
-            elapsed * STDDEV * torch.randn((n,), generator=generator))
+  target = (state.target_pressure + elapsed * STDDEV * torch.randn(
+      (n,), generator=generator, device=generator.device))
   new_state = RandomWalkState(target_pressure=target, time_elapsed_s=elapsed)
   return new_state, select_action(new_state, observation)
 

@@ -1,0 +1,238 @@
+"""Circular replay on the device for vectorized actors (the port of
+ble_tpu/agents/replay.py).
+
+Buffers are laid out (envs, time_ring, ...): every env writes its
+transition each step at the same ring cursor (lockstep episodes), and
+n-step returns are computed at sample time from the stored reward and
+terminal lanes. `add` and `update_priorities` write in place. The cursor
+`total` is a host int, so `can_sample` and the slot index never wait on
+the device.
+
+Sampling is split in two: `draw` takes every random number a sample needs
+from a torch.Generator (env indices, and base-step integers or, for the
+prioritized path, the uniform variates of the Gumbel-max), and the
+deterministic `sample_from_draws` does the rest (n-step return, bootstrap
+discount, coherence mask, finite quarantine, importance weights).
+
+Capacity = num_envs * ring_len (the reference uses 2M transitions, e.g.
+4096 envs x 512 slots).
+"""
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+_INT32_MAX = 2**31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplayConfig:
+  ring_len: int = 512
+  n_step: int = 5
+  gamma: float = 0.993
+  batch_size: int = 32
+  # Prioritized replay (reference quantile.gin uses Dopamine's prioritized
+  # buffer): envs are drawn uniformly, the time slot within each drawn env
+  # by priority via Gumbel-max over a (B, ring_len) tile. Loss weights and
+  # priority updates follow Dopamine's sqrt scheme.
+  prioritized: bool = False
+  priority_epsilon: float = 1e-3
+
+
+@dataclasses.dataclass
+class ReplayState:
+  obs: torch.Tensor  # (E, T, obs_dim) float32
+  action: torch.Tensor  # (E, T) int32
+  reward: torch.Tensor  # (E, T) float32
+  terminal: torch.Tensor  # (E, T) bool: episode ended AT this step.
+  valid: torch.Tensor  # (E, T) bool: transition written and pre-terminal.
+  episode_step: torch.Tensor  # (E, T) int32: step index within episode.
+  priority: torch.Tensor  # (E, T) float32 sampling priorities.
+  total: int = 0  # Global steps written (shared cursor).
+
+
+def init(num_envs: int, obs_dim: int, config: ReplayConfig,
+         device=None) -> ReplayState:
+  t = config.ring_len
+  zeros = lambda *shape, dtype=torch.float32: torch.zeros(
+      shape, dtype=dtype, device=device)
+  return ReplayState(
+      obs=zeros(num_envs, t, obs_dim),
+      action=zeros(num_envs, t, dtype=torch.int32),
+      reward=zeros(num_envs, t),
+      terminal=zeros(num_envs, t, dtype=torch.bool),
+      valid=zeros(num_envs, t, dtype=torch.bool),
+      episode_step=zeros(num_envs, t, dtype=torch.int32),
+      priority=zeros(num_envs, t))
+
+
+@torch.no_grad()
+def add(state: ReplayState, config: ReplayConfig, obs, action, reward,
+        terminal, active, episode_step) -> ReplayState:
+  """Writes one lockstep batch of transitions (obs_t, a_t, r_t) in place.
+
+  Args:
+    obs: (E, obs_dim) observations BEFORE the action.
+    action, reward, terminal: (E,) transition data.
+    active: (E,) whether the env was still live at this step (frozen
+      post-terminal balloons write invalid slots).
+    episode_step: (E,) step index within the current episode.
+  """
+  slot = state.total % config.ring_len
+  # New transitions get the current max priority (Dopamine convention) so
+  # they are sampled at least once.
+  max_priority = torch.clamp_min(state.priority.max(), 1.0)
+  state.priority[:, slot] = torch.where(active, max_priority, 0.0)
+  state.obs[:, slot] = obs
+  state.action[:, slot] = action
+  state.reward[:, slot] = reward
+  state.terminal[:, slot] = terminal
+  state.valid[:, slot] = active
+  state.episode_step[:, slot] = episode_step
+  state.total += 1
+  return state
+
+
+def draw(state: ReplayState, config: ReplayConfig,
+         generator: torch.Generator) -> Dict[str, torch.Tensor]:
+  """The random numbers of one sample, on the generator's device: env
+  indices, and base-step integers in [0, 2^31 - 1) (uniform) or uniform
+  variates in [1e-10, 1) over every slot (prioritized)."""
+  dev = generator.device
+  b = config.batch_size
+  out = {'env_idx': torch.randint(0, state.obs.shape[0], (b,),
+                                  generator=generator, device=dev)}
+  if config.prioritized:
+    u = torch.rand((b, config.ring_len), generator=generator, device=dev)
+    out['uniform'] = torch.clamp_min(1e-10 + (1.0 - 1e-10) * u, 1e-10)
+  else:
+    out['time_draw'] = torch.randint(0, _INT32_MAX, (b,), generator=generator,
+                                     device=dev)
+  return out
+
+
+@torch.no_grad()
+def sample_from_draws(state: ReplayState, config: ReplayConfig, env_idx,
+                      time_draw: Optional[torch.Tensor] = None,
+                      uniform: Optional[torch.Tensor] = None):
+  """A uniform or prioritized n-step sample (Dopamine update_horizon
+  semantics) from the draws of `draw`.
+
+  Returns a dict with (B, ...) leaves: obs, action, n_step_reward (rewards
+  discounted and summed up to the first terminal), bootstrap_discount
+  (gamma^n, or 0 if the horizon hit a terminal), next_obs (at t+n), weight
+  (0 for incoherent or non-finite samples; times the importance weight when
+  prioritized), env_idx and slot.
+  """
+  n = config.n_step
+  t_ring = config.ring_len
+  dev = state.obs.device
+  env_idx = env_idx.to(device=dev, dtype=torch.int64)
+  total = state.total
+
+  # Valid base steps: the window uses g..g+n, so
+  # g in [max(0, total - t_ring), total - n - 1].
+  oldest = max(0, total - t_ring)
+  hi = max(oldest + 1, total - n)
+
+  if config.prioritized:
+    # Per drawn env, Gumbel-max over log-priorities of eligible slots.
+    prio = state.priority[env_idx]  # (B, T)
+    cursor_prev = (total - 1) % t_ring
+    s_iota = torch.arange(t_ring, device=dev)
+    g_of_s = total - 1 - torch.remainder(cursor_prev - s_iota, t_ring)
+    eligible = (g_of_s >= oldest) & (g_of_s <= total - 1 - n)
+    logits = torch.log(torch.clamp_min(prio, 1e-20))
+    gumbel = -torch.log(-torch.log(uniform.to(dev)))
+    masked = torch.where(eligible[None, :] & (prio > 0), logits + gumbel,
+                         -torch.inf)
+    slot0 = masked.argmax(dim=-1)  # (B,)
+    g = g_of_s[slot0]
+    prio_sum = torch.where(eligible[None, :], prio, 0.0).sum(dim=-1)
+    probability = (torch.take_along_dim(prio, slot0[:, None], -1)[:, 0] /
+                   torch.clamp_min(prio_sum, 1e-20))
+  else:
+    g = oldest + torch.remainder(time_draw.to(device=dev, dtype=torch.int64),
+                                 max(hi - oldest, 1))
+
+  slots = torch.remainder(
+      g[:, None] + torch.arange(n + 1, device=dev)[None, :], t_ring)
+  rows = env_idx[:, None]
+  rewards = state.reward[rows, slots[:, :n]]  # (B, n)
+  terminals = state.terminal[rows, slots[:, :n]]
+  valids = state.valid[rows, slots]
+  ep_steps = state.episode_step[rows, slots]
+
+  # Mask rewards after the first terminal inside the window.
+  not_term_before = torch.cumprod(torch.cat(
+      [torch.ones_like(terminals[:, :1], dtype=torch.int32),
+       1 - terminals[:, :-1].to(torch.int32)], dim=1),
+      dim=1).to(torch.float32)  # (B, n): 1 until (incl.) first terminal.
+  discounts = config.gamma ** torch.arange(n, device=dev,
+                                           dtype=torch.float32)
+  n_step_reward = (rewards * discounts * not_term_before).sum(dim=1)
+
+  hit_terminal = terminals.any(dim=1)
+  bootstrap = torch.where(hit_terminal, 0.0, config.gamma ** n)
+
+  obs = state.obs[env_idx, slots[:, 0]].to(torch.float32)
+  next_obs = state.obs[env_idx, slots[:, n]].to(torch.float32)
+  action = state.action[env_idx, slots[:, 0]]
+
+  # Coherence: base slot valid, and the window stays within one episode up
+  # to the first terminal (episode_step increments by 1 per slot).
+  expected = ep_steps[:, :1] + torch.arange(n + 1, device=dev)[None, :]
+  coherent_steps = ep_steps == expected
+  # Only slots up to the bootstrap target need coherence; slots after a
+  # terminal contribute nothing (rewards masked, bootstrap zeroed).
+  need = torch.cat([not_term_before > 0, ~hit_terminal[:, None]], dim=1)
+  coherent = (coherent_steps | ~need).all(dim=1)
+  base_ok = valids[:, 0]
+  # Numerical quarantine: a transition holding a non-finite value gets
+  # weight 0 (and quantile_loss keeps it out of the gradient).
+  finite = (torch.isfinite(obs).all(dim=-1) &
+            torch.isfinite(next_obs).all(dim=-1) &
+            torch.isfinite(n_step_reward))
+  weight = (coherent & base_ok & finite).to(torch.float32)
+
+  if config.prioritized:
+    # Dopamine scheme: importance weights 1/sqrt(prob), normalized by max.
+    iw = 1.0 / torch.sqrt(probability + config.priority_epsilon)
+    iw = iw / torch.clamp_min(iw.max(), 1e-20)
+    weight = weight * iw
+
+  return {
+      'obs': obs,
+      'action': action,
+      'n_step_reward': n_step_reward,
+      'bootstrap_discount': bootstrap,
+      'next_obs': next_obs,
+      'weight': weight,
+      'env_idx': env_idx,
+      'slot': slots[:, 0],
+  }
+
+
+def sample(state: ReplayState, config: ReplayConfig,
+           generator: torch.Generator):
+  """`sample_from_draws` on fresh draws from `generator`."""
+  return sample_from_draws(state, config, **draw(state, config, generator))
+
+
+@torch.no_grad()
+def update_priorities(state: ReplayState, config: ReplayConfig, env_idx,
+                      slot, per_sample_loss) -> ReplayState:
+  """Sets sampled slots' priorities to sqrt(loss + eps) (Dopamine), in
+  place. Non-finite losses give priority 1.0: `add` seeds new slots with
+  max(priority), so one NaN would otherwise poison the whole lane."""
+  new_p = torch.sqrt(per_sample_loss + config.priority_epsilon)
+  new_p = torch.where(torch.isfinite(new_p), new_p, 1.0)
+  state.priority[env_idx, slot] = new_p
+  return state
+
+
+def can_sample(state: ReplayState, config: ReplayConfig,
+               min_history: int) -> bool:
+  return state.total > (min_history // max(state.obs.shape[0], 1) +
+                        config.n_step)

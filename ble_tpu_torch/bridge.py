@@ -72,10 +72,11 @@ def to_dict(obj) -> dict:
   return out
 
 
-def decoder_params_from_flax(params) -> dict:
-  """The VAE decoder's state dict (generative/vae.Decoder) from the JAX
-  package's flax tree of numpy arrays, {'params': {'Dense_i': {'kernel',
-  'bias'}}}; each (in, out) kernel becomes an (out, in) weight."""
+def _dense_stack_from_flax(params) -> dict:
+  """The state dict of a module whose parameters are `layers.i` nn.Linear
+  from a flax tree of numpy arrays, {'params': {'Dense_i': {'kernel',
+  'bias'}}}: each (in, out) kernel becomes an (out, in) weight, by
+  transpose; each bias carries across as it is."""
   dense = params['params']
   out = {}
   for i in range(len(dense)):
@@ -85,3 +86,19 @@ def decoder_params_from_flax(params) -> dict:
     out[f'layers.{i}.bias'] = torch.from_numpy(
         np.array(layer['bias'], np.float32))
   return out
+
+
+def decoder_params_from_flax(params) -> dict:
+  """The VAE decoder's state dict (generative/vae.Decoder)."""
+  return _dense_stack_from_flax(params)
+
+
+def quantile_params_from_flax(params) -> dict:
+  """agents/networks.QuantileNetwork's state dict: the weights every
+  learner parity test carries across from the JAX package."""
+  return _dense_stack_from_flax(params)
+
+
+def mlp_params_from_flax(params) -> dict:
+  """agents/networks.MLPNetwork's state dict."""
+  return _dense_stack_from_flax(params)

@@ -7,21 +7,27 @@ results/eval/station_seeker_tiny_eval.json there):
 
 The generative field decodes one grid per seed with the VAE decoder that
 models/loader.py resolves (the deterministic fallback when no trained blob
-is found).
+is found). `--agent quantile --checkpoint_dir <base_dir>` evaluates the
+greedy policy of the latest checkpoint that train.py wrote there.
 """
 
 import argparse
 import os
 
+from ble_tpu_torch.agents import qrdqn
 from ble_tpu_torch.agents import random_walk
 from ble_tpu_torch.agents import station_seeker
 from ble_tpu_torch.env import env as env_lib
 from ble_tpu_torch.models import loader
 from ble_tpu_torch.train import eval_lib
+from ble_tpu_torch.train import learner as learner_lib
 from ble_tpu_torch.train import suites
+from ble_tpu_torch.train import train_lib
+
+AGENTS = ('station_seeker', 'random', 'random_walk', 'quantile')
 
 
-def make_policy_fns(agent_name: str):
+def make_policy_fns(agent_name: str, checkpoint_dir=None, device=None):
   """(policy_init, policy_step) for the batched evaluator."""
   if agent_name == 'station_seeker':
     return (lambda n, gen: (),
@@ -30,13 +36,22 @@ def make_policy_fns(agent_name: str):
     return random_walk.random_policy(env_lib.NUM_ACTIONS)
   if agent_name == 'random_walk':
     return random_walk.init, random_walk.step
+  if agent_name == 'quantile':
+    if checkpoint_dir is None:
+      raise ValueError(f'{agent_name} needs --checkpoint_dir')
+    # The network's widths come from the checkpoint's tensors, so the
+    # training run's replay and env sizes do not matter here.
+    params, _ = train_lib.restore_latest_learner_params(checkpoint_dir)
+    network = qrdqn.network_from_params(params, env_lib.NUM_ACTIONS, device)
+    return learner_lib.make_eval_policy(
+        learner_lib.TrainConfig(agent=agent_name), network)
   raise ValueError(f'Unknown agent: {agent_name}')
 
 
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__)
   parser.add_argument('--agent', type=str, default='station_seeker',
-                      choices=['station_seeker', 'random', 'random_walk'])
+                      choices=AGENTS)
   parser.add_argument('--suite', type=str, default='micro_eval',
                       choices=suites.available_suites())
   parser.add_argument('--wind_field', type=str, default='generative',
@@ -45,6 +60,8 @@ def main(argv=None):
                       default=os.path.join('results', 'eval'),
                       help='Where the results JSON goes (relative paths '
                       'from the working directory).')
+  parser.add_argument('--checkpoint_dir', type=str, default=None,
+                      help='Base directory of a training run (quantile).')
   parser.add_argument('--batch_size', type=int, default=4096,
                       help='Seeds evaluated per device batch.')
   parser.add_argument('--device', type=str, default='cuda')
@@ -62,7 +79,8 @@ def main(argv=None):
         'generative', loader.load_offlineskies22(device=args.device))
   else:
     field_fn = env_lib.make_field_fn('static')
-  policy_init, policy_step = make_policy_fns(args.agent)
+  policy_init, policy_step = make_policy_fns(args.agent, args.checkpoint_dir,
+                                             args.device)
   eval_fn = eval_lib.build_eval_fn(
       env_params, field_fn, policy_init, policy_step,
       max_steps=suite.max_episode_length, device=args.device)

@@ -1,0 +1,314 @@
+"""Vectorized actor-learner on the device (the port of
+ble_tpu/train/learner.py).
+
+E envs step in lockstep through env.step_batched (B1 and B2 on the card),
+write into the replay ring on the device, and the learner takes
+`E * samples_per_insert / batch_size` gradient steps per env step: the
+reference's samples-per-insert ratio (Acme SPI=8; Dopamine's
+update_period=4 with batch 32).
+
+Envs reset on their own: terminal (or truncated) envs freeze and are
+re-initialized at chunk boundaries (selective_reset) from fresh world
+seeds taken from a host counter, like the reference's per-process episodes
+(balloon_arena.py:161).
+
+The step is a Python loop over eager PyTorch. The counters a step tests
+(replay.total, train_steps, env_steps, the world-seed counter) are host
+ints, so no step waits on the device; the per-step metrics stay on the
+device until the caller reads a chunk's worth. The replay ring and the
+learner are updated in place: a state passed to env_step must not be used
+again.
+
+Of the JAX package's TRAINABLE_AGENTS only `quantile` is ported; the others
+raise NotImplementedError (ROADMAP A11).
+"""
+
+import dataclasses
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ble_tpu_torch import resolve_device
+from ble_tpu_torch.agents import marco_polo
+from ble_tpu_torch.agents import qrdqn as qrdqn_lib
+from ble_tpu_torch.agents import replay as replay_lib
+from ble_tpu_torch.env import env as env_lib
+from ble_tpu_torch.env import wind_gp
+
+TRAINABLE_AGENTS = ('quantile', 'finetune_perciatelli', 'dqn', 'mlp',
+                    'r2d2')
+# Training worlds are seeded apart from the eval suites' seeds (small
+# ints): the k-th episode of run `seed` starts from world seed
+# TRAIN_SEED_BASE + seed * 2**33 + k.
+TRAIN_SEED_BASE = 1 << 40
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+  agent: str = 'quantile'
+  num_envs: int = 1024
+  episode_length: int = 960
+  samples_per_insert: float = 8.0
+  use_marco_polo: bool = True
+  # < 0 means the agent's default: quantile 0.0 (quantile.gin:20).
+  epsilon_train: float = -1.0
+  qrdqn: qrdqn_lib.QrDqnConfig = dataclasses.field(
+      default_factory=qrdqn_lib.QrDqnConfig)
+  replay: replay_lib.ReplayConfig = dataclasses.field(
+      default_factory=replay_lib.ReplayConfig)
+
+  def grad_steps_per_env_step(self) -> int:
+    return max(1, round(self.num_envs * self.samples_per_insert /
+                        self.replay.batch_size))
+
+
+class AgentCore(NamedTuple):
+  """The functions a trainable agent gives the actor-learner."""
+  name: str
+  epsilon_train: float
+  init: Callable  # (generator, obs_dim, device) -> learner state
+  params_of: Callable  # learner state -> policy network
+  # (network, obs (B, D), generator, epsilon) -> (B,) int32
+  select_action: Callable
+  # (learner state, batch, grad_transform) -> (learner state, metrics)
+  train_step: Callable
+  min_replay_history: int
+
+
+def make_agent_core(config: TrainConfig) -> AgentCore:
+  if config.agent == 'quantile':
+    qcfg = config.qrdqn
+    eps = config.epsilon_train
+    return AgentCore(
+        name='quantile', epsilon_train=0.0 if eps < 0 else eps,
+        init=lambda gen, d, device: qrdqn_lib.init(gen, qcfg, d, device),
+        params_of=lambda s: s.network,
+        select_action=lambda net, obs, gen, e: qrdqn_lib.select_action(
+            qcfg, net, obs, gen, e),
+        train_step=lambda s, batch, gt: qrdqn_lib.train_step(qcfg, s, batch,
+                                                             gt),
+        min_replay_history=qcfg.min_replay_history)
+  if config.agent in TRAINABLE_AGENTS:
+    raise NotImplementedError(
+        f'agent {config.agent!r} is not ported to ble_tpu_torch yet '
+        '(ROADMAP A11); only quantile trains')
+  raise ValueError(f'Unknown trainable agent {config.agent!r}; '
+                   f'choose from {TRAINABLE_AGENTS}')
+
+
+@dataclasses.dataclass
+class TrainState:
+  env_state: env_lib.EnvState  # Batched (E, ...).
+  obs: torch.Tensor  # (E, obs_dim)
+  active: torch.Tensor  # (E,) bool: env not yet terminal/truncated.
+  episode_step: torch.Tensor  # (E,) int32 step within each env's episode.
+  episode_return: torch.Tensor  # (E,) float32 running episodic return.
+  mp: marco_polo.MarcoPoloState
+  learner: qrdqn_lib.LearnerState
+  replay: replay_lib.ReplayState
+  # Every draw of the loop (exploration, MarcoPolo, replay sampling), on
+  # the envs' device.
+  generator: torch.Generator
+  env_steps: int = 0  # Lockstep env steps taken.
+  episodes_done: int = 0
+  next_world_seed: int = TRAIN_SEED_BASE  # Seed of the next fresh episode.
+
+
+def first_world_seed(seed: int) -> int:
+  return TRAIN_SEED_BASE + (int(seed) << 33)
+
+
+def train_state_from_envs(config: TrainConfig, env_state: env_lib.EnvState,
+                          obs: torch.Tensor, seed: int = 0,
+                          next_world_seed: Optional[int] = None
+                          ) -> TrainState:
+  """A fresh TrainState around envs already reset: the network drawn from a
+  CPU generator seeded with `seed` (the same weights on any device), the
+  loop's generator on the envs' device seeded with `seed`."""
+  core = make_agent_core(config)
+  n, obs_dim = obs.shape
+  dev = obs.device
+  generator = torch.Generator(dev).manual_seed(seed)
+  learner = core.init(torch.Generator().manual_seed(seed), obs_dim, dev)
+  return TrainState(
+      env_state=env_state, obs=obs,
+      active=torch.ones((n,), dtype=torch.bool, device=dev),
+      episode_step=torch.zeros((n,), dtype=torch.int32, device=dev),
+      episode_return=torch.zeros((n,), dtype=torch.float32, device=dev),
+      mp=marco_polo.begin_episode(n, generator), learner=learner,
+      replay=replay_lib.init(n, obs_dim, config.replay, dev),
+      generator=generator,
+      next_world_seed=(first_world_seed(seed) + n if next_world_seed is None
+                       else next_world_seed))
+
+
+def init_train_state(seed: int, env_params: env_lib.EnvParams,
+                     field_fn: Callable, config: TrainConfig,
+                     device=None) -> TrainState:
+  """config.num_envs fresh episodes (world seeds from first_world_seed) and
+  a fresh learner, replay and MarcoPolo state on `device` (default cuda)."""
+  device = resolve_device(device)
+  make_agent_core(config)
+  first = first_world_seed(seed)
+  seeds = list(range(first, first + config.num_envs))
+  env_state, obs = env_lib.reset(env_params, seeds, field_fn, device)
+  return train_state_from_envs(config, env_state, obs, seed,
+                               first + config.num_envs)
+
+
+def _scatter(old, idx, new):
+  """`old` with rows `idx` of every leaf replaced by `new`'s."""
+  if dataclasses.is_dataclass(old):
+    return dataclasses.replace(old, **{
+        f.name: _scatter(getattr(old, f.name), idx, getattr(new, f.name))
+        for f in dataclasses.fields(old)})
+  if old is None:
+    return None
+  return old.index_copy(0, idx, new.to(old.dtype))
+
+
+def selective_reset(ts: TrainState, env_params: env_lib.EnvParams,
+                    field_fn: Callable
+                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+  """Re-initializes every inactive env from a fresh world; the others
+  continue (ble_tpu learner.py:258-301). The fresh episodes take the next
+  world seeds of the host counter, through env.reset on field_fn; only
+  those envs are reset, and scattered back. Reads the inactive envs'
+  indices on the host, once.
+
+  Returns (state, stats): stats carries each env's `completed` flag and its
+  episode's `returns` and `lengths` for the collectors.
+  """
+  needs = ~ts.active
+  stats = {'completed': needs, 'returns': ts.episode_return,
+           'lengths': ts.episode_step}
+  idx = torch.nonzero(needs).flatten()
+  k = idx.numel()
+  if k == 0:
+    return ts, stats
+  seeds = list(range(ts.next_world_seed, ts.next_world_seed + k))
+  new_env, new_obs = env_lib.reset(env_params, seeds, field_fn,
+                                   ts.obs.device)
+  new_mp = marco_polo.begin_episode(k, ts.generator)
+  ts = dataclasses.replace(
+      ts,
+      env_state=_scatter(ts.env_state, idx, new_env),
+      obs=ts.obs.index_copy(0, idx, new_obs),
+      active=torch.ones_like(ts.active),
+      episode_step=ts.episode_step.index_fill(0, idx, 0),
+      episode_return=ts.episode_return.index_fill(0, idx, 0.0),
+      mp=_scatter(ts.mp, idx, new_mp),
+      next_world_seed=ts.next_world_seed + k,
+      episodes_done=ts.episodes_done + k)
+  return ts, stats
+
+
+def learn(config: TrainConfig, core: AgentCore,
+          learner: qrdqn_lib.LearnerState, replay: replay_lib.ReplayState,
+          generator: torch.Generator, grad_transform=None):
+  """The learner's share of an env step: grad_steps_per_env_step() train
+  steps on fresh replay samples (and their priority updates). Returns
+  (learner, the mean loss as a 0-d device tensor)."""
+  n = config.grad_steps_per_env_step()
+  loss_sum = None
+  for _ in range(n):
+    batch = replay_lib.sample(replay, config.replay, generator)
+    learner, metrics = core.train_step(learner, batch, grad_transform)
+    if config.replay.prioritized:
+      replay_lib.update_priorities(replay, config.replay, batch['env_idx'],
+                                   batch['slot'], metrics['per_sample_loss'])
+    loss_sum = (metrics['loss'] if loss_sum is None
+                else loss_sum + metrics['loss'])
+  return learner, loss_sum / n
+
+
+def env_step(config: TrainConfig, env_params: env_lib.EnvParams,
+             ts: TrainState, grad_transform=None
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+  """One lockstep actor step and its learner updates (ble_tpu
+  learner.py:304-408): actions, MarcoPolo, step_batched, replay.add, then
+  the train steps once replay can sample. The slab cache is re-centred by
+  the caller (run_episode_chunk)."""
+  core = make_agent_core(config)
+  network = core.params_of(ts.learner)
+  rl_actions = core.select_action(network, ts.obs, ts.generator,
+                                  core.epsilon_train)
+  if config.use_marco_polo:
+    mp, actions = marco_polo.step(ts.mp, ts.obs, rl_actions, ts.generator)
+  else:
+    mp, actions = ts.mp, rl_actions
+
+  out = env_lib.step_batched(env_params, ts.env_state, actions)
+
+  terminal = ts.active & out.done
+  rep = replay_lib.add(ts.replay, config.replay, ts.obs, actions, out.reward,
+                       terminal, ts.active, ts.episode_step)
+
+  learner = ts.learner
+  if replay_lib.can_sample(rep, config.replay, core.min_replay_history):
+    learner, mean_loss = learn(config, core, learner, rep, ts.generator,
+                               grad_transform)
+  else:
+    mean_loss = torch.zeros((), device=ts.obs.device)
+
+  active_f = ts.active.to(torch.float32)
+  masked_reward = torch.where(ts.active, out.reward, 0.0)
+  truncated = (ts.episode_step + 1) >= config.episode_length
+  new_active = ts.active & ~(out.done | truncated)
+
+  # Per-step collector statistics: action histogram over live envs,
+  # terminal counts, and env 0's flight track.
+  action_hist = torch.zeros((env_lib.NUM_ACTIONS,), dtype=torch.int32,
+                            device=actions.device).index_add_(
+                                0, actions.to(torch.int64),
+                                ts.active.to(torch.int32))
+  metrics = {
+      'reward': masked_reward.sum() / torch.clamp_min(active_f.sum(), 1.0),
+      'loss': mean_loss,
+      'active_frac': new_active.to(torch.float32).mean(),
+      'action_hist': action_hist,
+      'terminals': terminal.to(torch.int32).sum(),
+      'path': torch.stack([out.info['x_km'][0], out.info['y_km'][0],
+                           out.info['pressure_pa'][0],
+                           out.info['battery_soc'][0]]),
+  }
+  ts = dataclasses.replace(
+      ts, env_state=out.state, obs=out.observation, active=new_active,
+      episode_step=ts.episode_step + ts.active.to(torch.int32),
+      episode_return=ts.episode_return + masked_reward,
+      mp=mp, learner=learner, replay=rep, env_steps=ts.env_steps + 1)
+  return ts, metrics
+
+
+def run_episode_chunk(config: TrainConfig, env_params: env_lib.EnvParams,
+                      ts: TrainState, num_steps: int, grad_transform=None
+                      ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+  """`num_steps` lockstep env steps (ble_tpu learner.py:411-454); returns
+  (state, metrics stacked over the steps, still on the device).
+
+  The chunk starts with one exact GP refresh (one batched Cholesky per
+  env), which washes out the incremental updates' float32 drift. With the
+  slab cache on, the slab is re-centred before every env.FIELD_CACHE_EVERY
+  steps, the tail included: ble_tpu's nested scans do the same.
+  """
+  ts = dataclasses.replace(ts, env_state=dataclasses.replace(
+      ts.env_state, gp=wind_gp.refresh(ts.env_state.gp)))
+  steps = []
+  for t in range(num_steps):
+    if env_params.field_cache and t % env_lib.FIELD_CACHE_EVERY == 0:
+      ts = dataclasses.replace(
+          ts, env_state=env_lib.refresh_field_cache(ts.env_state))
+    ts, metrics = env_step(config, env_params, ts, grad_transform)
+    steps.append(metrics)
+  return ts, {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+
+
+def make_eval_policy(config: TrainConfig, network):
+  """(policy_init, policy_step) for eval_lib.build_eval_fn: greedy actions
+  of `network`."""
+  core = make_agent_core(config)
+
+  def policy_step(state, obs, generator):
+    return state, core.select_action(network, obs, generator, 0.0)
+
+  return (lambda n, generator: ()), policy_step

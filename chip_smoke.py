@@ -38,6 +38,23 @@ Phases (each raises on a failure, so the exit code is then not 0):
              must launch every step, the observations stay finite and the
              time within radius lies in [0, 1]. Run twice from one
              initial state: the first run is counted, the second timed.
+  train      the training path at full width: QR-DQN (8 x 600, 51
+             atoms) over E = 1024 generative envs, replay ring 512,
+             batch 32, 256 train steps an env step, MarcoPolo on; two
+             chunks of 8 env steps with a selective reset between them;
+             B1 and B2 must launch every env step, train_steps must be 256
+             x the env steps at which replay could sample, losses finite;
+             then env-steps/s, gradient steps/s, the learner's and the
+             env's ms an env step, one env step under torch.profiler
+             (host ms by part, device ms, launches, busy share), one
+             train step on the card against the CPU (parameters,
+             gradients and the step's update, beside two faulty steps
+             that must break a limit: TF32 matmuls, a rate 1.1 times too
+             large), a full and a light checkpoint round trip, and the
+             training CLI (--agent quantile, no --device) for one
+             iteration of 8 env steps and again, resuming from its
+             checkpoint. With phase kernels, B1 and B2 are also checked
+             at E = 1024 on the train run's own state.
   timing     each kernel at its path's shapes with CUDA events, beside its
              plain version, a library call where one computes the same
              function or its dominant term, and its bound; for B1, B3, B4
@@ -85,7 +102,7 @@ DEV = 'cuda'
 E = 4096
 MAIN_STEPS = 128
 DEFAULT_PHASES = ('device', 'build', 'kernels', 'reference', 'gym', 'pair',
-                  'main', 'timing')
+                  'main', 'train', 'timing')
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
 # float32 on the CUDA cores and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
@@ -147,8 +164,12 @@ def kernel_device_ms(fn, reps: int = 50):
   """Milliseconds of CUDA kernels one call of fn() runs on the card, by
   torch.profiler (CUPTI) over `reps` calls: the kernels' own time, without
   the host's launch path, which CUDA events over back-to-back calls of a
-  small kernel measure instead. The lower of two sessions that recorded
-  kernels; None if neither did."""
+  small kernel measure instead. A short session can lose kernel records
+  (on some H100 hosts a session kept 58-64 % of its launches and read
+  that share of the time), so of three sessions only
+  those that recorded a whole number of launches a call count, and of
+  those the one with the most launches, the lower time between equals.
+  None, with the sessions logged, if no session counts."""
   fn()
   torch.cuda.synchronize()
 
@@ -157,9 +178,14 @@ def kernel_device_ms(fn, reps: int = 50):
       fn()
     torch.cuda.synchronize()
 
-  readings = [device_time(run, reps)[0] for _ in range(2)]
-  readings = [r for r in readings if r > 0]
-  return min(readings) if readings else None
+  readings = [device_time(run, reps)[:2] for _ in range(3)]
+  whole = [r for r in readings
+           if r[1] >= 1 and abs(r[1] * reps - round(r[1]) * reps) < 0.5]
+  if not whole:
+    log('device time: no session recorded whole launches a call; '
+        f'(ms, launches a call): {readings}')
+    return None
+  return max(whole, key=lambda r: (r[1], -r[0]))[0]
 
 
 def clock_under_load(fn, seconds: float = 2.0) -> dict:
@@ -441,16 +467,18 @@ def b2_errs(got_state, got, want_state, want) -> dict:
   }
 
 
-def check_b2(state, k: int) -> dict:
-  """The window kernel against its plain version from `state` over K
-  steps, each value held to B2_ATOL, or at K = 8 kinv and alpha to
-  B2_K8_ATOL."""
+def check_b2(state, k: int, obs=None) -> dict:
+  """The window kernel against its plain version from `state` (at its
+  batch) over K steps of `obs` (by default gp_obs_seq's), each value held
+  to B2_ATOL, or at K = 8 kinv and alpha to B2_K8_ATOL."""
   from ble_tpu_torch.ops import gp_window
-  obs = gp_obs_seq(1, k, E, t0_step=140)
+  n = state.kinv.shape[0]
+  if obs is None:
+    obs = gp_obs_seq(1, k, n, t0_step=140)
   got_state, got = gp_window.window_kernel(state, obs)
   want_state, want = gp_window.window_plain(state, obs)
   torch.cuda.synchronize()
-  check(tuple(got.shape) == (k, E, 181, 3), f'B2 level shape {got.shape}')
+  check(tuple(got.shape) == (k, n, 181, 3), f'B2 level shape {got.shape}')
   check(bool(torch.isfinite(got).all()), 'B2 levels not finite')
   check(torch.equal(got_state.active, want_state.active), 'B2 active differs')
   check(torch.equal(got_state.count, want_state.count), 'B2 count differs')
@@ -458,7 +486,7 @@ def check_b2(state, k: int) -> dict:
         'B2 locations differ')
   check(torch.equal(got_state.errors, want_state.errors), 'B2 errors differ')
   errs = b2_errs(got_state, got, want_state, want)
-  log(f'B2 K={k} max |kernel - plain|:', json.dumps(errs))
+  log(f'B2 E={n} K={k} max |kernel - plain|:', json.dumps(errs))
   for name, err in errs.items():
     limit = B2_K8_ATOL.get(name, B2_ATOL) if k == 8 else B2_ATOL
     check(err <= limit, f'B2 K={k} {name} error {err} > {limit}')
@@ -1094,6 +1122,397 @@ def phase_main(params, field_fn, state0, obs0) -> dict:
           'per_step_ms': 1e3 * second_s / MAIN_STEPS}
 
 
+TRAIN_E = 1024
+# An env step takes ~2.9 s at full width on an H100 (80GB HBM3, 700 W), so
+# the phase runs two chunks of 8 env steps, the first 5 filling the
+# replay, to stay near a minute.
+TRAIN_CHUNK = 8
+TRAIN_SPLIT_STEPS = 2
+# One train step on the card against the same step on the CPU from the
+# same parameters, Adam state and batch, each reading the largest over the
+# network's tensors. params: max |card - cpu| over max |cpu|. grads:
+# |card - cpu| over |cpu| in norm. updates: |card - cpu| after the step
+# over |cpu after - before| in norm, the step's own error, which params
+# cannot see: at lr 2e-6 a whole step is ~5e-5 of max |w|. Two faulty
+# steps on the card, against the same CPU step, show that the limits
+# catch what they are for (check_train_step): TF32 matmuls and a rate
+# 1.1 times too large.
+TRAIN_PARAM_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_UPDATE_RTOL = 1e-3
+
+
+def _trees_equal(got, want) -> bool:
+  """Nested dicts, lists and tuples of tensors and numbers, equal leaf for
+  leaf (tensors compared on the CPU)."""
+  if isinstance(want, dict):
+    return set(got) == set(want) and all(_trees_equal(got[k], want[k])
+                                         for k in want)
+  if isinstance(want, (list, tuple)):
+    return len(got) == len(want) and all(map(_trees_equal, got, want))
+  if isinstance(want, torch.Tensor):
+    return (got.dtype == want.dtype and got.shape == want.shape and
+            torch.equal(got.cpu(), want.cpu()))
+  return got == want
+
+
+@contextlib.contextmanager
+def _timed_learner(times: list):
+  """Wraps learner.learn, the learner's share of an env step, in a host
+  clock between two synchronisations; `times` gets one reading a call. The
+  port itself carries no instrumentation."""
+  from ble_tpu_torch.train import learner as learner_lib
+  learn = learner_lib.learn
+
+  def timed(*args, **kwargs):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = learn(*args, **kwargs)
+    torch.cuda.synchronize()
+    times.append(time.perf_counter() - t)
+    return out
+
+  learner_lib.learn = timed
+  try:
+    yield
+  finally:
+    learner_lib.learn = learn
+
+
+def _train_step_errs(learner, cpu, before) -> dict:
+  """How far `learner`'s step lies from the CPU learner's (the readings
+  of TRAIN_PARAM_RTOL, TRAIN_GRAD_RTOL and TRAIN_UPDATE_RTOL); `before`
+  holds the parameters both started from."""
+  errs = {'params': 0.0, 'grads': 0.0, 'updates': 0.0}
+  got = dict(learner.network.named_parameters())
+  for k, w in cpu.network.named_parameters():
+    card, w, g = got[k].detach().cpu(), w.detach(), w.grad
+    errs['params'] = max(errs['params'], float(
+        (card - w).abs().max() / w.abs().max()))
+    errs['grads'] = max(errs['grads'], float(
+        (got[k].grad.cpu() - g).norm() / g.norm()))
+    delta = w.double() - before[k]
+    errs['updates'] = max(errs['updates'], float(
+        (card.double() - w.double()).norm() / delta.norm()))
+  return errs
+
+
+def check_train_step(config, ts) -> dict:
+  """One train_step on the card against the same step on the CPU, from the
+  card learner's parameters and Adam state and one replay batch: params,
+  grads and updates (_train_step_errs) to their limits, the loss to 1e-5
+  relative. Then the controls, each a faulty step on the card from the
+  same start against the same CPU step, each of which must break one of
+  the limits: the step with TF32 matmuls (which the precision policy
+  rules out), and the step at 1.1 times the learning rate (a wrong
+  optimizer)."""
+  import copy
+  from ble_tpu_torch.agents import qrdqn
+  from ble_tpu_torch.agents import replay
+  from ble_tpu_torch.train import train_lib
+  batch = replay.sample(ts.replay, config.replay, ts.generator)
+  start = copy.deepcopy(train_lib.learner_state_dict(ts.learner))
+
+  def learner_at_start(device):
+    learner = qrdqn.init(torch.Generator().manual_seed(0), config.qrdqn,
+                         ts.obs.shape[1], device)
+    train_lib.load_learner_state(learner, start)
+    return learner
+
+  cpu = learner_at_start('cpu')
+  before = {k: v.detach().cpu().double()
+            for k, v in ts.learner.network.state_dict().items()}
+  _, card_m = qrdqn.train_step(config.qrdqn, ts.learner, batch)
+  _, cpu_m = qrdqn.train_step(config.qrdqn, cpu,
+                              {k: v.cpu() for k, v in batch.items()})
+  errs = _train_step_errs(ts.learner, cpu, before)
+  loss_err = abs(float(card_m['loss']) - float(cpu_m['loss'])) / abs(
+      float(cpu_m['loss']))
+  log('train: one train_step card vs cpu, max over tensors of relative '
+      f'|card - cpu|: {json.dumps(errs)}; loss {float(card_m["loss"]):.6g} '
+      f'vs {float(cpu_m["loss"]):.6g} (relative {loss_err:.3g}); batch '
+      f'valid_frac {float(cpu_m["valid_frac"]):.3f}')
+  limits = {'params': TRAIN_PARAM_RTOL, 'grads': TRAIN_GRAD_RTOL,
+            'updates': TRAIN_UPDATE_RTOL}
+  for key, limit in limits.items():
+    check(errs[key] <= limit, f'train step {key} {errs[key]} > {limit}')
+  check(loss_err <= 1e-5, f'train step loss {loss_err}')
+
+  controls = {}
+  learner = learner_at_start(DEV)
+  torch.backends.cuda.matmul.allow_tf32 = True
+  try:
+    qrdqn.train_step(config.qrdqn, learner, batch)
+  finally:
+    torch.set_float32_matmul_precision('highest')
+  check(not torch.backends.cuda.matmul.allow_tf32, 'TF32 left on')
+  controls['tf32'] = _train_step_errs(learner, cpu, before)
+  learner = learner_at_start(DEV)
+  qrdqn.train_step(dataclasses.replace(
+      config.qrdqn, learning_rate=1.1 * config.qrdqn.learning_rate),
+                   learner, batch)
+  controls['lr x 1.1'] = _train_step_errs(learner, cpu, before)
+  log('train: controls, faulty steps on the card vs the sound cpu step:',
+      json.dumps(controls))
+  for name, ctrl in controls.items():
+    check(any(ctrl[k] > limit for k, limit in limits.items()),
+          f'the train-step limits pass the {name} control: {ctrl}')
+  return errs
+
+
+def check_train_checkpoints(config, ts) -> None:
+  """A full and a light checkpoint written from the card and read back
+  onto it, each into a fresh state (another network, an empty replay):
+  every tensor, counter and the generator's state equal to what was
+  saved."""
+  import os
+  import tempfile
+  from ble_tpu_torch.train import learner as learner_lib
+  from ble_tpu_torch.train import train_lib
+  saved = train_lib.train_state_dict(ts)
+  with tempfile.TemporaryDirectory() as d:
+    t = time.perf_counter()
+    path = train_lib.save_checkpoint(d, ts, 0)
+    save_s = time.perf_counter() - t
+    size = os.path.getsize(path)
+    template = learner_lib.train_state_from_envs(config, ts.env_state,
+                                                 ts.obs, seed=1)
+    t = time.perf_counter()
+    restored, iteration = train_lib.restore_latest_checkpoint(d, template)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    check(iteration == 0 and restored.replay.obs.is_cuda,
+          'full checkpoint restored off the card')
+    check(_trees_equal(train_lib.train_state_dict(restored), saved),
+          'full checkpoint round trip differs')
+    del restored, template
+    light = train_lib.save_checkpoint(d, ts, 1, light=True)
+    light_size = os.path.getsize(light)
+    params, iteration = train_lib.restore_latest_learner_params(d)
+    check(iteration == 1 and _trees_equal(
+        params, ts.learner.network.state_dict()),
+          'light checkpoint parameters differ')
+    template = learner_lib.train_state_from_envs(config, ts.env_state,
+                                                 ts.obs, seed=2)
+    restored, _ = train_lib.restore_latest_checkpoint(d, template)
+    check(_trees_equal(train_lib.learner_state_dict(restored.learner),
+                       saved['learner']), 'light checkpoint learner differs')
+    del restored, template
+  log(f'train: checkpoints round-trip on the card: full {size / 1e9:.3f} GB '
+      f'(saved in {save_s:.2f} s, restored in {load_s:.2f} s), light '
+      f'{light_size / 1e6:.2f} MB')
+
+
+@contextlib.contextmanager
+def _last_b2_inputs(out: list):
+  """Keeps in `out` a copy of (GP state, observations) of the last call
+  to gp_window.window, the env step's route to B2."""
+  from ble_tpu_torch.ops import gp_window
+  window = gp_window.window
+
+  def recorded(state, obs_seq):
+    out[:] = [dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).clone()
+        for f in dataclasses.fields(state)}), obs_seq.clone()]
+    return window(state, obs_seq)
+
+  gp_window.window = recorded
+  try:
+    yield
+  finally:
+    gp_window.window = window
+
+
+def check_train_cli(config) -> None:
+  """`python -m ble_tpu_torch.train.train --agent quantile` as a user runs
+  it, with no --device (so on the card) and TrainConfig's defaults, cut
+  to one iteration of TRAIN_CHUNK env steps in a temporary base_dir: B1
+  and B2 launch every env step, train_steps is 256 x the steps that could
+  sample, replay.total the steps, and the full checkpoint of the
+  iteration is written. The same command again resumes from it at
+  iteration 1 of 1, so takes no step: its learner equals the first
+  run's."""
+  import os
+  import tempfile
+  from ble_tpu_torch.train import train
+  with tempfile.TemporaryDirectory() as d:
+    argv = ['--agent', 'quantile', '--base_dir', d, '--num_iterations', '1',
+            '--max_episode_length', str(TRAIN_CHUNK)]
+    counts = _reset_counts()
+    t = time.perf_counter()
+    ts = train.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches = counts()
+    ckpts = sorted(os.listdir(os.path.join(d, 'checkpoints')))
+    first = (config.qrdqn.min_replay_history // config.num_envs +
+             config.replay.n_step)
+    trained = max(TRAIN_CHUNK - first, 0)
+    check(ts.replay.obs.is_cuda and tuple(ts.replay.obs.shape) ==
+          (config.num_envs, config.replay.ring_len, ts.obs.shape[1]),
+          'train CLI: replay not on the card at full size')
+    check(launches['physics'] >= TRAIN_CHUNK and
+          launches['gp_window'] >= TRAIN_CHUNK,
+          f'train CLI: B1 or B2 not launched every step: {launches}')
+    check(ts.replay.total == TRAIN_CHUNK == ts.env_steps,
+          f'train CLI: replay.total {ts.replay.total}')
+    check(ts.learner.train_steps == config.grad_steps_per_env_step() *
+          trained, f'train CLI: train_steps {ts.learner.train_steps}')
+    check(ckpts == ['ckpt_00000000.pt'], f'train CLI checkpoints {ckpts}')
+    check(bool(torch.isfinite(ts.obs).all()), 'train CLI obs not finite')
+    saved = {k: v.clone() for k, v in ts.learner.network.state_dict().items()}
+    train_steps = ts.learner.train_steps
+    del ts
+    t = time.perf_counter()
+    ts = train.main(argv)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t
+    check(ts.learner.train_steps == train_steps and
+          ts.replay.total == TRAIN_CHUNK and
+          _trees_equal(ts.learner.network.state_dict(), saved),
+          'train CLI did not resume from its checkpoint')
+    del ts
+  log(f'train: CLI {" ".join(argv[:2] + argv[4:])}: {run_s:.2f} s, '
+      f'launches {json.dumps(launches)}, {train_steps} train steps; '
+      f'resumed without a step in {resume_s:.2f} s')
+
+
+def phase_train(field_fn):
+  """The training path at full width: run_training_loop's own pieces
+  (init_train_state, run_episode_chunk, selective_reset) with TrainConfig's
+  defaults at E = 1024 generative envs: the 8 x 600, 51-atom quantile
+  network, replay ring 512 with batch 32 and n-step 5, 256 train steps an
+  env step once replay can sample, MarcoPolo on, slab cache on. Two chunks
+  of TRAIN_CHUNK env steps with a selective_reset between them in which
+  every eighth env is forced inactive. B1 and B2 must launch every env
+  step; train_steps must be 256 x the env steps at which replay could
+  sample; the losses finite; replay.total the steps. Then
+  TRAIN_SPLIT_STEPS more steps with the learner timed apart, one more
+  under torch.profiler, one train_step against the CPU, the checkpoint
+  round trips, and the training CLI (check_train_cli). Returns the path's
+  launches, its final state, and B2's inputs at the last env step of the
+  second chunk (the train rows' data)."""
+  from torch.autograd import DeviceType
+  from ble_tpu_torch.env import env as env_lib
+  from ble_tpu_torch.train import learner as learner_lib
+  params = env_lib.EnvParams(field_cache=True)
+  config = learner_lib.TrainConfig(num_envs=TRAIN_E)
+  torch.cuda.reset_peak_memory_stats()
+  t = time.perf_counter()
+  ts = learner_lib.init_train_state(0, params, field_fn, config, DEV)
+  torch.cuda.synchronize()
+  log(f'train: init_train_state at E={TRAIN_E} in '
+      f'{time.perf_counter() - t:.2f} s')
+  net = ts.learner.network
+  check(len(net.layers) == 8 and net.layers[0].out_features == 600 and
+        net.num_atoms == 51, 'train network is not 8 x 600, 51 atoms')
+  check(tuple(ts.replay.obs.shape) == (TRAIN_E, 512, 1099) and
+        config.replay.batch_size == 32 and config.replay.n_step == 5 and
+        config.use_marco_polo, 'train replay or exploration not full size')
+  per_env_step = config.grad_steps_per_env_step()
+  check(per_env_step == 256, f'{per_env_step} train steps an env step')
+
+  counts = _reset_counts()
+  t = time.perf_counter()
+  ts, m1 = learner_lib.run_episode_chunk(config, params, ts, TRAIN_CHUNK)
+  torch.cuda.synchronize()
+  chunk1_s = time.perf_counter() - t
+  forced = torch.arange(TRAIN_E, device=DEV) % 8 == 0
+  ts.active = ts.active & ~forced
+  t = time.perf_counter()
+  ts, stats = learner_lib.selective_reset(ts, params, field_fn)
+  torch.cuda.synchronize()
+  reset_s = time.perf_counter() - t
+  b2_inputs = []
+  t = time.perf_counter()
+  with _last_b2_inputs(b2_inputs):
+    ts, m2 = learner_lib.run_episode_chunk(config, params, ts, TRAIN_CHUNK)
+  torch.cuda.synchronize()
+  chunk2_s = time.perf_counter() - t
+  launches = counts()
+  steps = 2 * TRAIN_CHUNK
+  log(f'train: launches {json.dumps(launches)} in {steps} env steps')
+  check(launches['physics'] >= steps, 'train: B1 was not launched per step')
+  check(launches['gp_window'] >= steps, 'train: B2 was not launched per step')
+  first = (config.qrdqn.min_replay_history // TRAIN_E +
+           config.replay.n_step)
+  trained = sum(1 for s in range(steps) if s + 1 > first)
+  check(ts.learner.train_steps == per_env_step * trained,
+        f'train_steps {ts.learner.train_steps} != {per_env_step} x {trained}')
+  check(ts.replay.total == steps and ts.env_steps == steps,
+        f'replay.total {ts.replay.total} after {steps} steps')
+  loss = torch.cat([m1['loss'], m2['loss']])
+  check(bool(torch.isfinite(loss).all()), 'train loss not finite')
+  check(bool((loss[first:] > 0).all()), 'train loss 0 while training')
+  completed = stats['completed']
+  check(bool(completed[forced].all()) and
+        ts.episodes_done == int(completed.sum()),
+        'train: forced envs were not reset')
+  rewards = torch.cat([m1['reward'], m2['reward']])
+  check(bool(torch.isfinite(rewards).all()), 'train rewards not finite')
+  check(bool(torch.isfinite(ts.obs).all()), 'train observations not finite')
+  hist = (m1['action_hist'].sum(0) + m2['action_hist'].sum(0)).tolist()
+
+  times = []
+  t = time.perf_counter()
+  with _timed_learner(times):
+    ts, _ = learner_lib.run_episode_chunk(config, params, ts,
+                                          TRAIN_SPLIT_STEPS)
+  torch.cuda.synchronize()
+  split_s = time.perf_counter() - t
+  learner_s = sum(times)
+  check(len(times) == TRAIN_SPLIT_STEPS, 'train: the learner did not run')
+
+  def one_step():
+    nonlocal ts
+    ts, _ = learner_lib.env_step(config, params, ts)
+    torch.cuda.synchronize()
+
+  # Two sessions, the one with more launches kept (kernel_device_ms says
+  # why); both logged.
+  with _train_ranges():
+    sessions = [device_time(one_step, 1) for _ in range(2)]
+  log('train: profiled env steps (device ms, launches):',
+      [s[:2] for s in sessions])
+  device_ms, launches_per_step, events = max(sessions, key=lambda s: s[1])
+  ranges = {e.key: e.cpu_time_total / 1e3 for e in events
+            if e.key.startswith('step/') and e.device_type == DeviceType.CPU}
+  wall_ms = 1e3 * split_s / TRAIN_SPLIT_STEPS
+  log('train: profile of one env step: host ms by part, nested parts '
+      'inside their callers (profiled):',
+      json.dumps({k: round(v, 2) for k, v in sorted(ranges.items())}))
+  log(f'train: profile of one env step: {device_ms:.2f} ms of device '
+      f'kernels in {launches_per_step:.0f} launches '
+      f'({launches_per_step / per_env_step:.1f} a train step); device busy '
+      f'share {device_ms / wall_ms:.3f} of the unprofiled '
+      f'{wall_ms:.1f} ms')
+  log(events.table(sort_by='self_cpu_time_total', row_limit=20,
+                   max_name_column_width=60))
+  summary = {
+      'envs': TRAIN_E, 'env_steps': steps, 'trained_env_steps': trained,
+      'train_steps': per_env_step * trained,
+      # Over the second chunk, where every env step trains.
+      'env_steps_per_s': TRAIN_E * TRAIN_CHUNK / chunk2_s,
+      'chunk_s': [chunk1_s, chunk2_s], 'reset_s': reset_s,
+      'reset_envs': int(completed.sum()),
+      'loss_first_last': [float(loss[first]), float(loss[-1])],
+      'mean_reward': float(rewards.mean()), 'action_hist': hist,
+      'split_env_steps_per_s': TRAIN_E * TRAIN_SPLIT_STEPS / split_s,
+      'split_grad_steps_per_s': per_env_step * TRAIN_SPLIT_STEPS / learner_s,
+      'split_ms_per_env_step': 1e3 * split_s / TRAIN_SPLIT_STEPS,
+      'split_learner_ms_per_env_step': 1e3 * learner_s / TRAIN_SPLIT_STEPS,
+      'split_env_ms_per_env_step':
+          1e3 * (split_s - learner_s) / TRAIN_SPLIT_STEPS,
+      'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9,
+  }
+  log(f'train: {nvidia_smi_line()}:', json.dumps(summary))
+  check_train_step(config, ts)
+  check_train_checkpoints(config, ts)
+  check_train_cli(config)
+  return {'physics_train': launches['physics'],
+          'gp_window_train': launches['gp_window']}, ts, b2_inputs
+
+
 def time_b1(params, state) -> dict:
   """B1 at the batch of `state` with random actions."""
   from ble_tpu_torch.env import balloon as balloon_lib
@@ -1148,20 +1567,14 @@ def time_b5(gp_state, xs, ys, ts) -> dict:
   return row
 
 
-def phase_timing(params, state, gp_state, gym_state) -> dict:
-  """Each kernel at the batch of the path its launches are counted on:
-  B1 and B2 at E = 4096 (main); B1 and B5 on the gym run's final state
-  and B3 on a GP state warmed past the ring, E = 1 (gym); B4 and B5 at
-  E = 4096 (pair)."""
+def time_b2(gp_state, obs=None) -> dict:
+  """B2 (K = 1) at the batch of `gp_state` on `obs` (by default
+  gp_obs_seq's), beside its plain version, the library yardstick and its
+  bound; the SM clock under load."""
   from ble_tpu_torch.ops import gp_window
-  out = {'physics': time_b1(params, state)}
-  if gym_state is not None:
-    b = gym_state.balloon
-    out['physics_gym'] = time_b1(params, gym_state)
-    out['gp_query_gym'] = time_b5(gym_state.gp, b.x_m, b.y_m,
-                                  b.time_elapsed_s)
-
-  obs = gp_obs_seq(2, 1, E, t0_step=140)
+  n = gp_state.kinv.shape[0]
+  if obs is None:
+    obs = gp_obs_seq(2, 1, n, t0_step=140)
   f32 = lambda a: a.to(torch.float32).contiguous()
   args = (obs, f32(gp_state.locations), f32(gp_state.errors),
           f32(gp_state.active), f32(gp_state.kinv), f32(gp_state.alpha),
@@ -1171,12 +1584,35 @@ def phase_timing(params, state, gp_state, gym_state) -> dict:
                      warmup=1)
   # The library yardstick: one batched float32 matmul of kinv by k*, the
   # kernel's dominant term (never called by the port).
-  k_star = torch.rand((E, 128, 181), device=DEV)
+  k_star = torch.rand((n, 128, 181), device=DEV)
   library_ms = cuda_ms(lambda: torch.bmm(gp_state.kinv, k_star), reps=20)
-  out['gp_window'] = _bound_row(ms, plain_ms, library_ms,
-                                1e3 * b2_ops(obs) / PEAK_F32_FLOPS,
-                                b2_bytes(obs))
-  out['gp_window'].update(clock_under_load(lambda: gp_window.launch(*args)))
+  row = _bound_row(ms, plain_ms, library_ms,
+                   1e3 * b2_ops(obs) / PEAK_F32_FLOPS, b2_bytes(obs))
+  row['device_ms'] = kernel_device_ms(lambda: gp_window.launch(*args))
+  row.update(clock_under_load(lambda: gp_window.launch(*args)))
+  return row
+
+
+def phase_timing(params, state, gp_state, gym_state, train_state,
+                 train_b2) -> dict:
+  """Each kernel at the batch of the path its launches are counted on:
+  B1 and B2 at E = 4096 (main); B1 and B5 on the gym run's final state
+  and B3 on a GP state warmed past the ring, E = 1 (gym); B4 and B5 at
+  E = 4096 (pair); B1 on the train run's final env state and B2 on the
+  train run's own GP state and observations, E = 1024 (train)."""
+  out = {'physics': time_b1(params, state)}
+  if train_state is not None:
+    out['physics_train'] = time_b1(params, train_state.env_state)
+    out['gp_window_train'] = time_b2(*train_b2)
+  if gym_state is not None:
+    b = gym_state.balloon
+    out['physics_gym'] = time_b1(params, gym_state)
+    out['gp_query_gym'] = time_b5(gym_state.gp, b.x_m, b.y_m,
+                                  b.time_elapsed_s)
+
+  out['gp_window'] = time_b2(gp_state)
+  obs = gp_obs_seq(2, 1, E, t0_step=140)
+  f32 = lambda a: a.to(torch.float32).contiguous()
 
   # B3 (E = 1) and B4 (E = 4096): the observe alone. The library yardstick
   # is one batched float32 baddbmm of its rank-8 update, kinv + (W c) W^T,
@@ -1216,11 +1652,8 @@ def _bound_row(ms, plain_ms, library_ms, ops_ms, nbytes) -> dict:
           'ops_ms': ops_ms, 'bytes_ms': bytes_ms}
 
 
-@contextlib.contextmanager
 def _step_ranges():
-  """Wraps the parts of a main-path step in torch.profiler ranges named
-  step/<part>, by patching the module attributes the step calls through;
-  the port itself carries no instrumentation."""
+  """The parts of a main-path step in torch.profiler ranges."""
   from ble_tpu_torch.agents import station_seeker
   from ble_tpu_torch.env import balloon as balloon_lib
   from ble_tpu_torch.env import env as env_lib
@@ -1229,7 +1662,7 @@ def _step_ranges():
   from ble_tpu_torch.env import wind_gp
   from ble_tpu_torch.ops import gp_window
   from ble_tpu_torch.ops import physics
-  targets = [
+  return _ranges([
       (physics, 'simulate_step_fused', 'physics (B1 + safety)'),
       (env_lib, '_wind_and_forecast', 'wind column + noise'),
       (gp_window, 'step', 'gp (B2)'),
@@ -1240,7 +1673,37 @@ def _step_ranges():
       (station_seeker, 'pick_action', 'policy'),
       (wind_gp, 'refresh', 'gp refresh (every 64)'),
       (env_lib, 'refresh_field_cache', 'slab re-centre (every 8)'),
-  ]
+  ])
+
+
+def _train_ranges():
+  """The parts of a training env step in torch.profiler ranges: the env
+  step, the actor's parts, and the learner's, with each train step's loss
+  (both networks' forwards) inside it; backward and Adam are the train
+  step less its loss."""
+  from ble_tpu_torch.agents import marco_polo
+  from ble_tpu_torch.agents import qrdqn
+  from ble_tpu_torch.agents import replay
+  from ble_tpu_torch.env import env as env_lib
+  from ble_tpu_torch.train import learner as learner_lib
+  return _ranges([
+      (env_lib, 'step_batched', 'env step (B1, B2)'),
+      (qrdqn, 'select_action', 'policy'),
+      (marco_polo, 'step', 'marco polo'),
+      (replay, 'add', 'replay add'),
+      (learner_lib, 'learn', 'learner'),
+      (replay, 'sample', 'learner: replay sample'),
+      (qrdqn, 'train_step', 'learner: train step'),
+      (qrdqn, 'quantile_loss', 'learner: train step: loss'),
+  ])
+
+
+@contextlib.contextmanager
+def _ranges(targets):
+  """Wraps each (module, attribute, label) of `targets` in a
+  torch.profiler range named step/<label>, by patching the module
+  attributes the path calls through; the port itself carries no
+  instrumentation."""
   saved = []
   for module, name, label in targets:
     fn = getattr(module, name)
@@ -1322,8 +1785,8 @@ def main(argv=None) -> int:
 
   params = env_lib.EnvParams(field_cache=True)
   field_fn = state0 = obs0 = gp_state = None
-  if phases & {'kernels', 'pair', 'main', 'timing', 'numerics', 'profile',
-                'splits'}:
+  if phases & {'kernels', 'pair', 'main', 'train', 'timing', 'numerics',
+                'profile', 'splits'}:
     field_fn = generative_field_fn()
   if phases & {'kernels', 'main', 'timing', 'numerics', 'profile',
                 'splits'}:
@@ -1353,7 +1816,7 @@ def main(argv=None) -> int:
   # Launches of each kernel on each path that carries it, each path driven
   # with every count set to 0 just before it and read just after: B1, B3
   # and B5 on the gym path (E = 1), B4 and B5 on the pair path, B1 and B2
-  # on the main path (E = 4096).
+  # on the main path (E = 4096) and on the train path (E = 1024).
   launches = {}
   gym_state = None
   if 'gym' in phases:
@@ -1367,9 +1830,17 @@ def main(argv=None) -> int:
   if 'main' in phases:
     main_out = phase_main(params, field_fn, state0, obs0)
     launches.update(main_out['launches'])
+  train_state = train_b2 = None
+  if 'train' in phases:
+    train_launches, train_state, train_b2 = phase_train(field_fn)
+    launches.update(train_launches)
+    if 'kernels' in phases:
+      errs['physics_train'] = check_b1(params, train_state.env_state)
+      errs['gp_window_train'] = check_b2(train_b2[0], 1, train_b2[1])
   timing = {}
   if 'timing' in phases:
-    timing = phase_timing(params, state0, gp_state, gym_state)
+    timing = phase_timing(params, state0, gp_state, gym_state, train_state,
+                          train_b2)
   if 'profile' in phases:
     phase_profile(params, field_fn, state0, obs0)
 
@@ -1377,12 +1848,15 @@ def main(argv=None) -> int:
   # the path named in `path`, at that path's batch.
   rows = []
   b1 = ('ble_tpu_torch/csrc/physics.cu', 'ble_tpu/ops/pallas_physics.py:184')
+  b2 = ('ble_tpu_torch/csrc/gp_window.cu',
+        'ble_tpu/ops/pallas_gp_window.py:360')
   b5 = ('ble_tpu_torch/csrc/gp_query.cu', 'ble_tpu/ops/pallas_gp.py:95')
   sources = {
       'physics': b1 + (f'main, E={E}',),
       'physics_gym': b1 + ('gym, E=1',),
-      'gp_window': ('ble_tpu_torch/csrc/gp_window.cu',
-                    'ble_tpu/ops/pallas_gp_window.py:360', f'main, E={E}'),
+      'gp_window': b2 + (f'main, E={E}',),
+      'physics_train': b1 + (f'train, E={TRAIN_E}',),
+      'gp_window_train': b2 + (f'train, E={TRAIN_E}',),
       'gp_observe_b3': ('ble_tpu_torch/csrc/gp_observe.cu',
                         'ble_tpu/ops/pallas_gp_observe.py:265', 'gym, E=1'),
       'gp_observe_b4': ('ble_tpu_torch/csrc/gp_observe.cu',

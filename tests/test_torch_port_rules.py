@@ -26,7 +26,10 @@ from ble_tpu_torch.ops import gp_window
 from ble_tpu_torch.ops import physics
 from ble_tpu_torch.train import eval as eval_cli
 from ble_tpu_torch.train import eval_lib
+from ble_tpu_torch.train import learner
 from ble_tpu_torch.train import suites
+from ble_tpu_torch.train import train as train_cli
+from ble_tpu_torch.train import train_lib
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.join(_ROOT, 'ble_tpu_torch')
@@ -114,6 +117,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     loader.load_offlineskies22()
   with pytest.raises(RuntimeError, match='CUDA'):
     gym_env.BalloonEnv(wind_field='static')
+  config = learner.TrainConfig(num_envs=2)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    learner.init_train_state(0, env_lib.EnvParams(),
+                             env_lib.make_field_fn('static'), config)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    train_lib.run_training_loop(None, env_lib.EnvParams(),
+                                env_lib.make_field_fn('static'), config,
+                                num_iterations=1)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    train_cli.main(['--wind_field', 'static', '--num_iterations', '1'])
   # Asked for explicitly, the CPU is used.
   assert ble_tpu_torch.resolve_device('cpu') == torch.device('cpu')
 
