@@ -65,7 +65,7 @@ def random_policy(num_actions: int):
   def policy(state, observation, generator):
     n = observation.shape[0]
     actions = torch.randint(0, num_actions, (n,), generator=generator,
-                            dtype=torch.int32)
+                            dtype=torch.int32, device=generator.device)
     return state, actions.to(observation.device)
   return (lambda n, generator: ()), policy
 

@@ -12,6 +12,9 @@ ble_tpu:
   effective_column per env serves both the balloon-pressure wind lookup and
   the 181-level feature forecast, and the GP observe + query runs as one
   `ops.gp_window.step`. The eval harness runs it.
+`rollout_window` stages K open-loop `step_batched` steps: the physics and
+winds step by step, the GP for all K steps in one `ops.gp_window.window`,
+then the features and rewards for all K x E rows at once. The bench runs it.
 Kernel or plain version is chosen by the tensors' device.
 """
 
@@ -82,6 +85,19 @@ class StepOutput(NamedTuple):
   reward: torch.Tensor
   done: torch.Tensor
   info: dict
+
+
+def tree_map(fn, *trees):
+  """`fn` applied leaf by leaf to dataclass trees of one structure (an
+  EnvState or any part of it); None leaves stay None."""
+  first = trees[0]
+  if dataclasses.is_dataclass(first):
+    return dataclasses.replace(first, **{
+        f.name: tree_map(fn, *(getattr(t, f.name) for t in trees))
+        for f in dataclasses.fields(first)})
+  if first is None:
+    return None
+  return fn(*trees)
 
 
 def reward_function(params: EnvParams, state: balloon_lib.BalloonState,
@@ -278,7 +294,82 @@ def step_batched(params: EnvParams, state: EnvState, actions) -> StepOutput:
   state, obs = _observe_and_features(params, state, col, noise_u, noise_v,
                                      was_ok)
 
-  return _step_output(params, state, obs)
+  return StepOutput(state, obs, *step_outcome(params, state.balloon,
+                                               state.wind))
+
+
+def rollout_window(params: EnvParams, state: EnvState, actions) -> StepOutput:
+  """K open-loop steps with the GP state resident across the window (the
+  port of ble_tpu/env/env.py:rollout_window).
+
+  Positions and winds do not depend on the GP or the features, which only
+  observe the trajectory, so when the K actions are known up front the
+  steps are staged:
+    1. a loop over the K steps runs the physics (B1, one launch a step on
+       the card), one effective_column and the noise at the balloon, and
+       the sunrise/sunset advance;
+    2. one gp_window.window call observes and queries all K steps (on the
+       card one launch of B2, kinv in shared memory for the window);
+    3. the level forecast, features, rewards, done flags and info for all
+       K x E rows at once.
+  It computes what K `step_batched` calls compute from the same state
+  (tests/test_torch_rollout_window.py); actions that depend on each step's
+  observation need `step_batched`. The slab is not re-centred inside the
+  window: with the cache on, the caller re-centres it (refresh_field_cache)
+  before each window of at most FIELD_CACHE_EVERY steps. Info has
+  step_batched's keys: with the cache on, slab_oob holds each step's
+  position against the slab the window used. Nothing in it waits for the
+  device.
+
+  Args:
+    params: EnvParams.
+    state: EnvState, leaves leading with (E,).
+    actions: (K, E) int actions on the envs' device.
+
+  Returns:
+    StepOutput with the final state and (K, E)-leading observation, reward,
+    done and info.
+  """
+  actions = actions.to(torch.int32)
+  k, n = actions.shape
+  balloon, wind_u, wind_v = state.balloon, state.wind_u, state.wind_v
+  sunrise, sunset = state.sunrise_s, state.sunset_s
+  per_step = []
+  for i in range(k):
+    was_ok = balloon.status == balloon_lib.STATUS_OK
+    balloon = physics.simulate_step_fused(params.balloon, state.atmosphere,
+                                          balloon, wind_u, wind_v,
+                                          actions[i])
+    col, forecast, noise_u, noise_v = _wind_and_forecast(state.wind, balloon)
+    wind_u = forecast[:, 0] + noise_u
+    wind_v = forecast[:, 1] + noise_v
+    sunrise = safety.advance_past(sunrise, balloon.time_s)
+    sunset = safety.advance_past(sunset, balloon.time_s)
+    per_step.append((balloon, col, noise_u, noise_v, was_ok, sunrise, sunset))
+  balloons, cols, noise_u, noise_v, was_ok, sunrises, sunsets = (
+      tree_map(lambda *xs: torch.stack(xs), *leaves)
+      for leaves in zip(*per_step))
+
+  elapsed = balloons.time_elapsed_s.to(torch.float32)
+  obs_seq = gp_window.pack_obs(balloons.x_m, balloons.y_m,
+                               balloons.pressure_pa, elapsed, noise_u,
+                               noise_v, was_ok)  # (K, E, 8)
+  gp, level = gp_window.window(state.gp, obs_seq)
+
+  flat = lambda tree: tree_map(lambda x: x.reshape((k * n,) + x.shape[2:]),
+                               tree)
+  atmosphere = tree_map(lambda x: x.expand((k,) + x.shape), state.atmosphere)
+  levels = features_lib.pressure_levels(actions.device)
+  forecast_levels = wind_field_lib.column_at_levels(flat(cols), levels)
+  obs = features_lib.get_features_precomputed(
+      params.balloon, flat(balloons), flat(atmosphere), flat(sunrises),
+      flat(sunsets), flat(level[..., 0:2]), flat(level[..., 2]),
+      forecast_levels).reshape(k, n, -1)
+  reward, done, info = step_outcome(params, balloons, state.wind)
+  final = dataclasses.replace(
+      state, balloon=balloon, gp=gp, wind_u=wind_u, wind_v=wind_v,
+      sunrise_s=sunrise, sunset_s=sunset, steps=state.steps + k)
+  return StepOutput(final, obs, reward, done, info)
 
 
 def step(params: EnvParams, state: EnvState, actions,
@@ -319,12 +410,15 @@ def step(params: EnvParams, state: EnvState, actions,
   obs = features_lib.get_features(params.balloon, balloon, gp, state.wind,
                                   state.atmosphere, state.sunrise_s,
                                   state.sunset_s)
-  return _step_output(params, state, obs)
+  return StepOutput(state, obs, *step_outcome(params, state.balloon,
+                                               state.wind))
 
 
-def _step_output(params: EnvParams, state: EnvState, obs) -> StepOutput:
-  """Reward, done flags and info of the step that led to `state`."""
-  balloon = state.balloon
+def step_outcome(params: EnvParams, balloon: balloon_lib.BalloonState,
+                 wind):
+  """(reward, done, info) of balloons just stepped, whose leaves lead with
+  (E,) or (K, E). With the slab cache on, info's slab_oob holds each
+  position against the slab of `wind`."""
   excess = balloon_lib.excess_energy(params.balloon, balloon)
   reward = reward_function(params, balloon, excess)
   info = {
@@ -339,7 +433,7 @@ def _step_output(params: EnvParams, state: EnvState, obs) -> StepOutput:
       'battery_soc': balloon_lib.battery_soc(params.balloon, balloon),
   }
   if params.field_cache:
-    info['slab_oob'] = wind_field_lib.slab_oob(state.wind, balloon.x_m,
+    info['slab_oob'] = wind_field_lib.slab_oob(wind, balloon.x_m,
                                                balloon.y_m)
   done = balloon.status != balloon_lib.STATUS_OK
-  return StepOutput(state, obs, reward, done, info)
+  return reward, done, info

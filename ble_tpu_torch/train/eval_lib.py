@@ -45,7 +45,8 @@ def build_eval_fn(env_params: env_lib.EnvParams, field_fn: Callable,
       (21, 21, 10, 9, 2), or one per env (env.make_field_fn).
     policy_init: (num_envs, generator) -> policy state.
     policy_step: (policy_state, obs (E, 1099), generator) ->
-      (policy_state, actions (E,) int32).
+      (policy_state, actions (E,) int32). The generator lies on the envs'
+      device.
     max_steps: episode cap (suites use 960).
     record_flight_path: also return (E, T, 6) [x_km, y_km, pressure,
       superpressure, elapsed_s, soc] trajectories.
@@ -67,7 +68,8 @@ def build_eval_fn(env_params: env_lib.EnvParams, field_fn: Callable,
     if env_state is None:
       env_state, obs = env_lib.reset(env_params, seeds, field_fn, device)
     n = len(seeds)
-    gen = torch.Generator().manual_seed(seeds[0] if seeds else 0)
+    gen = torch.Generator(device=obs.device).manual_seed(
+        seeds[0] if seeds else 0)
     pstate = policy_init(n, gen)
     pstate, action = policy_step(pstate, obs, gen)
     dev = obs.device

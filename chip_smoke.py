@@ -38,6 +38,18 @@ Phases (each raises on a failure, so the exit code is then not 0):
              must launch every step, the observations stay finite and the
              time within radius lies in [0, 1]. Run twice from one
              initial state: the first run is counted, the second timed.
+  window     the window route: env.rollout_window at K = 8 from main's
+             initial state (E = 4096, generative fields, slab cache on):
+             one window against 8 step_batched calls from the same state
+             (rewards, done flags, info, positions, winds, active slots
+             and counts equal; observations within 2e-4, kinv 5e-3), from
+             the reset and again after 128 steps; 16 windows (128 steps)
+             with B1 launched 8 times and B2 once a window, observations
+             finite and rewards in [0, 1], then the same windows timed;
+             then `python -m ble_tpu_torch.bench` in its window and
+             perstep modes at its defaults (4096 envs, on the card), each
+             printing one JSON line. With phase kernels, B1 and B2 (K = 8)
+             are also checked on the window run's own state and inputs.
   train      the training path at full width: QR-DQN (8 x 600, 51
              atoms) over E = 1024 generative envs, replay ring 512,
              batch 32, 256 train steps an env step, MarcoPolo on; two
@@ -102,7 +114,7 @@ DEV = 'cuda'
 E = 4096
 MAIN_STEPS = 128
 DEFAULT_PHASES = ('device', 'build', 'kernels', 'reference', 'gym', 'pair',
-                  'main', 'train', 'timing')
+                  'main', 'window', 'train', 'timing')
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
 # float32 on the CUDA cores and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
@@ -1122,6 +1134,181 @@ def phase_main(params, field_fn, state0, obs0) -> dict:
           'per_step_ms': 1e3 * second_s / MAIN_STEPS}
 
 
+WINDOW_K = 8
+WINDOW_COUNT = 16
+# The window against K sequential steps: tests/test_rollout_window.py:53-66
+# (observations 2e-4, kinv 5e-3; rewards, done flags, positions, winds,
+# active slots and counts equal).
+WINDOW_OBS_ATOL = 2e-4
+WINDOW_KINV_ATOL = 5e-3
+BENCH_KEYS = {'metric', 'value', 'unit', 'vs_baseline'}
+
+
+def check_window_agreement(params, state, actions, label: str) -> dict:
+  """env.rollout_window over the K rows of `actions` against K step_batched
+  calls from the same `state`, both on the card."""
+  from ble_tpu_torch.env import env as env_lib
+  got = env_lib.rollout_window(params, state, actions)
+  outs = []
+  st = state
+  for a in actions:
+    outs.append(env_lib.step_batched(params, st, a))
+    st = outs[-1].state
+  seq = lambda f: torch.stack([f(o) for o in outs])
+  want_obs = seq(lambda o: o.observation)
+  equal = {
+      'reward': torch.equal(got.reward, seq(lambda o: o.reward)),
+      'done': torch.equal(got.done, seq(lambda o: o.done)),
+      'info': all(torch.equal(got.info[k], seq(lambda o, k=k: o.info[k]))
+                  for k in outs[0].info) and set(got.info) == set(
+                      outs[0].info),
+      'x_y_pressure': all(torch.equal(getattr(got.state.balloon, n),
+                                      getattr(st.balloon, n))
+                          for n in ('x_m', 'y_m', 'pressure_pa')),
+      'winds': (torch.equal(got.state.wind_u, st.wind_u) and
+                torch.equal(got.state.wind_v, st.wind_v)),
+      'active': torch.equal(got.state.gp.active, st.gp.active),
+      'count': torch.equal(got.state.gp.count, st.gp.count),
+      'obs_bits': torch.equal(got.observation, want_obs),
+      'kinv_bits': torch.equal(got.state.gp.kinv, st.gp.kinv),
+  }
+  readings = {
+      'obs_max_abs_err': float((got.observation - want_obs).abs().max()),
+      'kinv_max_abs_err': float((got.state.gp.kinv - st.gp.kinv).abs().max()),
+      'equal': equal,
+      'evicting_envs_at_last_step': int((st.gp.count > 128).sum()),
+  }
+  log(f'window agreement ({label}), rollout_window against '
+      f'{len(actions)} step_batched:', json.dumps(readings))
+  if equal['obs_bits'] and equal['kinv_bits']:
+    log(f'window agreement ({label}): B2 at K = {len(actions)} and at '
+        f'{len(actions)} x K = 1 give equal bits (observations and kinv)')
+  for name in ('reward', 'done', 'info', 'x_y_pressure', 'winds', 'active',
+               'count'):
+    check(equal[name], f'window ({label}): {name} differs from step_batched')
+  check(readings['obs_max_abs_err'] <= WINDOW_OBS_ATOL,
+        f'window ({label}) observation error {readings["obs_max_abs_err"]}')
+  check(readings['kinv_max_abs_err'] <= WINDOW_KINV_ATOL,
+        f'window ({label}) kinv error {readings["kinv_max_abs_err"]}')
+  return readings
+
+
+def run_bench(mode: str) -> dict:
+  """`python -m ble_tpu_torch.bench` as a user runs it, with its defaults
+  (4096 generative envs, 32 steps, slab cache on, on the card) in `mode`:
+  exactly one JSON line on stdout with bench.py's keys and a positive
+  value."""
+  import os
+  env = {k: v for k, v in os.environ.items() if not k.startswith('BENCH_')}
+  env['BENCH_MODE'] = mode
+  t = time.perf_counter()
+  proc = subprocess.run([sys.executable, '-m', 'ble_tpu_torch.bench'],
+                        cwd=os.path.dirname(os.path.abspath(__file__)),
+                        env=env, capture_output=True, text=True, timeout=600)
+  wall_s = time.perf_counter() - t
+  check(proc.returncode == 0,
+        f'bench {mode} exited {proc.returncode}: {proc.stderr[-3000:]}')
+  lines = proc.stdout.splitlines()
+  check(len(lines) == 1, f'bench {mode} printed {len(lines)} lines')
+  result = json.loads(lines[0])
+  check(set(result) == BENCH_KEYS and result['value'] > 0 and
+        f'({E} envs, generative winds, {mode}, cuda)' in result['metric'],
+        f'bench {mode} line {lines[0]}')
+  log(f'bench {mode} ({wall_s:.1f} s in all):', lines[0])
+  return result
+
+
+def phase_window(params, state0) -> dict:
+  """The window route, env.rollout_window at K = WINDOW_K, from the main
+  path's initial state (E = 4096 generative envs, slab cache on).
+
+  Agreement: from the slab-re-centred state, one window against K
+  step_batched calls (check_window_agreement); again after the run below,
+  when the 128-slot ring is full and old points expire every step.
+  Launches: WINDOW_COUNT windows (128 steps), the slab re-centred before
+  each, with every count set to 0 just before and read just after: B1
+  WINDOW_K times and B2 once a window, B3-B5 never; observations finite,
+  rewards in [0, 1]. The same windows again from the same state, timed,
+  must give the same values; two of them under torch.profiler give the
+  device time and busy share. Then the bench in both modes. Returns the
+  launches, the window path's final state, B2's inputs at the last
+  window, and the summary."""
+  from ble_tpu_torch.env import env as env_lib
+  gen = torch.Generator(device=DEV).manual_seed(11)
+  draw = lambda: torch.randint(0, 3, (WINDOW_K, E), generator=gen,
+                               device=DEV, dtype=torch.int32)
+  check_window_agreement(params, env_lib.refresh_field_cache(state0), draw(),
+                         'from the reset')
+  actions = [draw() for _ in range(WINDOW_COUNT)]
+
+  def run(checks=None, windows=WINDOW_COUNT):
+    st, values = state0, []
+    for a in actions[:windows]:
+      st = env_lib.refresh_field_cache(st)
+      out = env_lib.rollout_window(params, st, a)
+      if checks is not None:
+        checks.append(torch.isfinite(out.observation).all() &
+                      ((out.reward >= 0) & (out.reward <= 1)).all())
+      values.append(out.reward + 1e-12 * out.observation.sum(-1))
+      st = out.state
+    return st, torch.cat(values)
+
+  checks, b2_inputs = [], []
+  torch.cuda.synchronize()
+  counts = _reset_counts()
+  with _last_b2_inputs(b2_inputs):
+    t = time.perf_counter()
+    _, values = run(checks)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+  launches = counts()
+  steps = WINDOW_K * WINDOW_COUNT
+  log(f'window: {WINDOW_COUNT} windows of K={WINDOW_K}, launches '
+      f'{json.dumps(launches)}')
+  check(launches['physics'] == steps,
+        f'window: B1 launched {launches["physics"]} times in {steps} steps')
+  check(launches['gp_window'] == WINDOW_COUNT,
+        f'window: B2 launched {launches["gp_window"]} times in '
+        f'{WINDOW_COUNT} windows')
+  check(launches['gp_observe'] == 0 and launches['gp_query'] == 0,
+        'window: B3-B5 ran')
+  check(tuple(b2_inputs[1].shape) == (WINDOW_K, E, 8),
+        f'window: B2 observations {tuple(b2_inputs[1].shape)}')
+  check(bool(torch.stack(checks).all()),
+        'window: observations not finite or rewards outside [0, 1]')
+
+  before = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  t = time.perf_counter()
+  final, values2 = run()
+  torch.cuda.synchronize()
+  second_s = time.perf_counter() - t
+  check(torch.equal(values2, values), 'the two window runs differ')
+  summary = {
+      'envs': E, 'steps': steps, 'window': WINDOW_K,
+      'first_run_s': first_s, 'second_run_s': second_s,
+      'env_steps_per_s': E * steps / second_s,
+      'ms_per_step': 1e3 * second_s / steps,
+      'mean_reward': float(values2.mean()),
+      'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9,
+      'peak_above_held_gb': (torch.cuda.max_memory_allocated() - before) /
+                            1e9,
+  }
+  # Two windows under torch.profiler: the device's share of the step.
+  device_ms, per_step, _ = device_time(
+      lambda: (run(windows=2), torch.cuda.synchronize()), 2 * WINDOW_K)
+  summary.update({'device_ms_per_step': device_ms,
+                  'device_launches_per_step': per_step,
+                  'device_busy_share': device_ms / summary['ms_per_step']})
+  log('window:', json.dumps(summary))
+  check_window_agreement(params, env_lib.refresh_field_cache(final), draw(),
+                         f'after {steps} steps')
+  summary['bench'] = {mode: run_bench(mode) for mode in ('window', 'perstep')}
+  return {'launches': {'physics_window': launches['physics'],
+                       'gp_window_window': launches['gp_window']},
+          'state': final, 'b2': b2_inputs, 'summary': summary}
+
+
 TRAIN_E = 1024
 # An env step takes ~2.9 s at full width on an H100 (80GB HBM3, 700 W), so
 # the phase runs two chunks of 8 env steps, the first 5 filling the
@@ -1568,9 +1755,11 @@ def time_b5(gp_state, xs, ys, ts) -> dict:
 
 
 def time_b2(gp_state, obs=None) -> dict:
-  """B2 (K = 1) at the batch of `gp_state` on `obs` (by default
-  gp_obs_seq's), beside its plain version, the library yardstick and its
-  bound; the SM clock under load."""
+  """B2 at the batch of `gp_state` over the K steps of `obs` (by default
+  one step of gp_obs_seq's), beside its plain version, the library
+  yardstick and its bound (the query at every step, the observe at every
+  enabled step, kinv read and written once a launch); the SM clock under
+  load."""
   from ble_tpu_torch.ops import gp_window
   n = gp_state.kinv.shape[0]
   if obs is None:
@@ -1582,25 +1771,35 @@ def time_b2(gp_state, obs=None) -> dict:
   ms = cuda_ms(lambda: gp_window.launch(*args), reps=20)
   plain_ms = cuda_ms(lambda: gp_window.window_plain(gp_state, obs), reps=3,
                      warmup=1)
-  # The library yardstick: one batched float32 matmul of kinv by k*, the
-  # kernel's dominant term (never called by the port).
+  # The library yardstick: K batched float32 matmuls of kinv by k*, the
+  # kernel's dominant term at each of its K steps (never called by the
+  # port).
   k_star = torch.rand((n, 128, 181), device=DEV)
-  library_ms = cuda_ms(lambda: torch.bmm(gp_state.kinv, k_star), reps=20)
+  library = lambda: [torch.bmm(gp_state.kinv, k_star)
+                     for _ in range(obs.shape[0])]
+  library_ms = cuda_ms(library, reps=20)
   row = _bound_row(ms, plain_ms, library_ms,
                    1e3 * b2_ops(obs) / PEAK_F32_FLOPS, b2_bytes(obs))
   row['device_ms'] = kernel_device_ms(lambda: gp_window.launch(*args))
+  row['library_device_ms'] = kernel_device_ms(library)
+  row['steps'] = obs.shape[0]
   row.update(clock_under_load(lambda: gp_window.launch(*args)))
   return row
 
 
 def phase_timing(params, state, gp_state, gym_state, train_state,
-                 train_b2) -> dict:
+                 train_b2, window_out) -> dict:
   """Each kernel at the batch of the path its launches are counted on:
-  B1 and B2 at E = 4096 (main); B1 and B5 on the gym run's final state
+  B1 and B2 at E = 4096 (main); B1 on the window run's final state and B2
+  at K = 8 on its last window's GP state and observations, E = 4096
+  (window); B1 and B5 on the gym run's final state
   and B3 on a GP state warmed past the ring, E = 1 (gym); B4 and B5 at
   E = 4096 (pair); B1 on the train run's final env state and B2 on the
   train run's own GP state and observations, E = 1024 (train)."""
   out = {'physics': time_b1(params, state)}
+  if window_out is not None:
+    out['physics_window'] = time_b1(params, window_out['state'])
+    out['gp_window_window'] = time_b2(*window_out['b2'])
   if train_state is not None:
     out['physics_train'] = time_b1(params, train_state.env_state)
     out['gp_window_train'] = time_b2(*train_b2)
@@ -1785,10 +1984,10 @@ def main(argv=None) -> int:
 
   params = env_lib.EnvParams(field_cache=True)
   field_fn = state0 = obs0 = gp_state = None
-  if phases & {'kernels', 'pair', 'main', 'train', 'timing', 'numerics',
-                'profile', 'splits'}:
+  if phases & {'kernels', 'pair', 'main', 'window', 'train', 'timing',
+                'numerics', 'profile', 'splits'}:
     field_fn = generative_field_fn()
-  if phases & {'kernels', 'main', 'timing', 'numerics', 'profile',
+  if phases & {'kernels', 'main', 'window', 'timing', 'numerics', 'profile',
                 'splits'}:
     state0, obs0 = reset_main(params, field_fn)
   errs = {}
@@ -1816,7 +2015,8 @@ def main(argv=None) -> int:
   # Launches of each kernel on each path that carries it, each path driven
   # with every count set to 0 just before it and read just after: B1, B3
   # and B5 on the gym path (E = 1), B4 and B5 on the pair path, B1 and B2
-  # on the main path (E = 4096) and on the train path (E = 1024).
+  # on the main path (E = 4096), on the window path (E = 4096, B2 at K = 8)
+  # and on the train path (E = 1024).
   launches = {}
   gym_state = None
   if 'gym' in phases:
@@ -1830,6 +2030,14 @@ def main(argv=None) -> int:
   if 'main' in phases:
     main_out = phase_main(params, field_fn, state0, obs0)
     launches.update(main_out['launches'])
+  window_out = None
+  if 'window' in phases:
+    window_out = phase_window(params, state0)
+    launches.update(window_out['launches'])
+    if 'kernels' in phases:
+      errs['physics_window'] = check_b1(params, window_out['state'])
+      errs['gp_window_window'] = check_b2(window_out['b2'][0], WINDOW_K,
+                                          window_out['b2'][1])
   train_state = train_b2 = None
   if 'train' in phases:
     train_launches, train_state, train_b2 = phase_train(field_fn)
@@ -1840,7 +2048,7 @@ def main(argv=None) -> int:
   timing = {}
   if 'timing' in phases:
     timing = phase_timing(params, state0, gp_state, gym_state, train_state,
-                          train_b2)
+                          train_b2, window_out)
   if 'profile' in phases:
     phase_profile(params, field_fn, state0, obs0)
 
@@ -1855,6 +2063,8 @@ def main(argv=None) -> int:
       'physics': b1 + (f'main, E={E}',),
       'physics_gym': b1 + ('gym, E=1',),
       'gp_window': b2 + (f'main, E={E}',),
+      'physics_window': b1 + (f'window, E={E}, K={WINDOW_K}',),
+      'gp_window_window': b2 + (f'window, E={E}, K={WINDOW_K}',),
       'physics_train': b1 + (f'train, E={TRAIN_E}',),
       'gp_window_train': b2 + (f'train, E={TRAIN_E}',),
       'gp_observe_b3': ('ble_tpu_torch/csrc/gp_observe.cu',
@@ -1881,6 +2091,11 @@ def main(argv=None) -> int:
         share = t['ms'] * main_out['launches'][name] / MAIN_STEPS
         log(f'  {name}: {share:.3f} ms of each {main_out["per_step_ms"]:.3f}'
             f' ms main-path step')
+      if window_out and name in window_out['launches']:
+        share = (t['ms'] * window_out['launches'][name] /
+                 (WINDOW_K * WINDOW_COUNT))
+        log(f'  {name}: {share:.3f} ms of each '
+            f'{window_out["summary"]["ms_per_step"]:.3f} ms window-path step')
   print(json.dumps({'kernels': rows}))
   print(nvidia_smi_line())
   print(json.dumps({'ok': True, 'device': {
