@@ -71,11 +71,22 @@ def register(name: str):
 
 
 def available_agents():
+  _register_all()
   return sorted(_REGISTRY)
+
+
+def _register_all() -> None:
+  """Imports every agent module, each of which registers its agents (the
+  JAX package does this in its agents/__init__.py)."""
+  import importlib
+  for module in ('mlp_agent', 'perciatelli44', 'quantile_agent',
+                 'random_walk', 'station_seeker'):
+    importlib.import_module(f'ble_tpu_torch.agents.{module}')
 
 
 def create_agent(name: str, num_actions: int,
                  observation_shape: Sequence[int], **kwargs) -> Agent:
+  _register_all()
   if name not in _REGISTRY:
     raise ValueError(
         f'Unknown agent {name!r}; available: {available_agents()}')
@@ -85,18 +96,21 @@ def create_agent(name: str, num_actions: int,
 
 class FunctionalAgent(Agent):
   """Adapts a batched functional policy to the stateful Agent API: one
-  observation is a batch of one env."""
+  observation is a batch of one env, a tensor on `device`. The host-side
+  agents (StationSeeker, the random walk) keep the CPU default; the
+  agents with networks pass the device their networks live on."""
 
   def __init__(self, num_actions: int, observation_shape: Sequence[int],
                init_fn: Callable[[int, torch.Generator], Any],
                policy_fn: Callable[[Any, torch.Tensor, torch.Generator],
                                    Tuple[Any, torch.Tensor]],
-               seed: Optional[int] = None):
+               seed: Optional[int] = None, device='cpu'):
     super().__init__(num_actions, observation_shape)
     self._init_fn = init_fn
     self._policy_fn = policy_fn
     self._generator = torch.Generator().manual_seed(0 if seed is None
                                                     else seed)
+    self._device = torch.device(device)
     self._state = None
 
   def begin_episode(self, observation) -> int:
@@ -110,7 +124,12 @@ class FunctionalAgent(Agent):
   def end_episode(self, reward: float, terminal: bool = True) -> None:
     pass
 
+  def _observation(self, observation) -> torch.Tensor:
+    """One observation as a (1, D) float32 tensor on the agent's device."""
+    return torch.as_tensor(np.asarray(observation, np.float32),
+                           device=self._device)[None]
+
   def _act(self, observation) -> int:
-    obs = torch.as_tensor(np.asarray(observation, np.float32))[None]
-    self._state, action = self._policy_fn(self._state, obs, self._generator)
+    self._state, action = self._policy_fn(
+        self._state, self._observation(observation), self._generator)
     return int(action[0])

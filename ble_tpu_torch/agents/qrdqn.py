@@ -55,9 +55,9 @@ class QrDqnConfig:
 class LearnerState:
   """ble_tpu's (params, target_params, opt_state, train_steps): the online
   and target networks, Adam over the online network, and the number of
-  train steps taken."""
-  network: networks.QuantileNetwork
-  target_network: networks.QuantileNetwork
+  train steps taken. The DQN and R2D2 learners keep the same state."""
+  network: torch.nn.Module
+  target_network: torch.nn.Module
   optimizer: torch.optim.Adam
   train_steps: int = 0
 
@@ -136,21 +136,51 @@ def q_values(network: networks.QuantileNetwork, obs) -> torch.Tensor:
   return network(obs)[0]
 
 
-def select_action(config: QrDqnConfig, network: networks.QuantileNetwork,
-                  obs, generator: Optional[torch.Generator] = None,
-                  epsilon: float = 0.0) -> torch.Tensor:
-  """Epsilon-greedy argmax over mean quantile values (batched): (B,) int32.
-  Exploration draws from `generator`, on its device."""
-  greedy = q_values(network, obs).argmax(dim=-1).to(torch.int32)
+def epsilon_greedy(q: torch.Tensor, num_actions: int,
+                   generator: Optional[torch.Generator] = None,
+                   epsilon: float = 0.0) -> torch.Tensor:
+  """The argmax of q (B, A) as (B,) int32, each replaced with probability
+  `epsilon` by a uniform random action; the draws come from `generator`,
+  on its device (none at epsilon 0)."""
+  greedy = q.argmax(dim=-1).to(torch.int32)
   if epsilon == 0.0:
     return greedy
   dev = generator.device
-  random_actions = torch.randint(0, config.num_actions, greedy.shape,
+  random_actions = torch.randint(0, num_actions, greedy.shape,
                                  generator=generator, device=dev,
                                  dtype=torch.int32)
   explore = torch.rand(greedy.shape, generator=generator, device=dev) < epsilon
   return torch.where(explore.to(greedy.device), random_actions.to(greedy.device),
                      greedy)
+
+
+def select_action(config: QrDqnConfig, network: networks.QuantileNetwork,
+                  obs, generator: Optional[torch.Generator] = None,
+                  epsilon: float = 0.0) -> torch.Tensor:
+  """Epsilon-greedy argmax over mean quantile values (batched): (B,) int32.
+  Exploration draws from `generator`, on its device."""
+  return epsilon_greedy(q_values(network, obs), config.num_actions,
+                        generator, epsilon)
+
+
+def quarantine(batch: Dict[str, torch.Tensor]):
+  """An n-step batch's (obs, next_obs, n_step_reward, bootstrap_discount,
+  weight, quarantined) with the inputs of quarantined samples (weight 0
+  and a non-finite value: replay's quarantine) zeroed; `quarantined` is
+  the (B,) mask, or None for a batch without weights (all weights 1)."""
+  obs, next_obs = batch['obs'], batch['next_obs']
+  reward, discount = batch['n_step_reward'], batch['bootstrap_discount']
+  w = batch.get('weight')
+  if w is None:
+    return obs, next_obs, reward, discount, torch.ones_like(reward), None
+  values = torch.cat([obs, next_obs, reward[:, None], discount[:, None]],
+                     dim=1)
+  quarantined = (w <= 0) & ~torch.isfinite(values).all(dim=1)
+  obs = torch.where(quarantined[:, None], 0.0, obs)
+  next_obs = torch.where(quarantined[:, None], 0.0, next_obs)
+  reward = torch.where(quarantined, 0.0, reward)
+  discount = torch.where(quarantined, 0.0, discount)
+  return obs, next_obs, reward, discount, w, quarantined
 
 
 def quantile_loss(config: QrDqnConfig, network, target_network,
@@ -162,20 +192,7 @@ def quantile_loss(config: QrDqnConfig, network, target_network,
   docstring); every other value is ble_tpu's.
   """
   n_atoms = config.num_atoms
-  obs, next_obs = batch['obs'], batch['next_obs']
-  reward, discount = batch['n_step_reward'], batch['bootstrap_discount']
-  w = batch.get('weight')
-  quarantined = None
-  if w is None:
-    w = torch.ones_like(reward)
-  else:
-    values = torch.cat([obs, next_obs, reward[:, None], discount[:, None]],
-                       dim=1)
-    quarantined = (w <= 0) & ~torch.isfinite(values).all(dim=1)
-    obs = torch.where(quarantined[:, None], 0.0, obs)
-    next_obs = torch.where(quarantined[:, None], 0.0, next_obs)
-    reward = torch.where(quarantined, 0.0, reward)
-    discount = torch.where(quarantined, 0.0, discount)
+  obs, next_obs, reward, discount, w, quarantined = quarantine(batch)
 
   # Target: r^n + gamma^n * theta_target(s', a*), a* greedy under the
   # TARGET network (Dopamine JaxQuantileAgent.target_distribution).
@@ -217,31 +234,43 @@ def quantile_loss(config: QrDqnConfig, network, target_network,
   return loss, metrics
 
 
+def optimizer_step(state: LearnerState, loss: torch.Tensor,
+                   learning_rate: float, target_update_period: int,
+                   grad_transform: Optional[Callable] = None) -> None:
+  """The gradient of `loss` into the online network, one step of its
+  optimizer at `learning_rate`, and the target network set to the online
+  one when train_steps, after its increment, is a multiple of
+  `target_update_period` (ble_tpu's jnp.where / lax.cond sync), in place.
+
+  `grad_transform(grads)` may reduce the list of gradients in place across
+  processes (the data-parallel learner).
+  """
+  trained = [p for p in state.network.parameters() if p.requires_grad]
+  for p in trained:
+    p.grad = None
+  loss.backward()
+  if grad_transform is not None:
+    grad_transform([p.grad for p in trained])
+  for group in state.optimizer.param_groups:
+    group['lr'] = learning_rate
+  state.optimizer.step()
+  state.train_steps += 1
+  if state.train_steps % target_update_period == 0:
+    with torch.no_grad():
+      for t, p in zip(state.target_network.parameters(),
+                      state.network.parameters()):
+        t.copy_(p)
+
+
 def train_step(config: QrDqnConfig, state: LearnerState,
                batch: Dict[str, torch.Tensor],
                grad_transform: Optional[Callable] = None
                ) -> Tuple[LearnerState, Dict[str, torch.Tensor]]:
   """One Adam step and the periodic target sync (ble_tpu qrdqn.py:136-159),
-  in place; returns (state, metrics) with `loss` detached.
-
-  `grad_transform(grads)` may reduce the list of gradients in place across
-  processes (the data-parallel learner).
-  """
-  params = list(state.network.parameters())
-  for p in params:
-    p.grad = None
+  in place; returns (state, metrics) with `loss` detached."""
   loss, metrics = quantile_loss(config, state.network, state.target_network,
                                 batch)
-  loss.backward()
-  if grad_transform is not None:
-    grad_transform([p.grad for p in params])
-  for group in state.optimizer.param_groups:
-    group['lr'] = learning_rate_at(config, state.train_steps)
-  state.optimizer.step()
-  state.train_steps += 1
-  if state.train_steps % config.target_update_period == 0:
-    with torch.no_grad():
-      for t, p in zip(state.target_network.parameters(), params):
-        t.copy_(p)
+  optimizer_step(state, loss, learning_rate_at(config, state.train_steps),
+                 config.target_update_period, grad_transform)
   metrics['loss'] = loss.detach()
   return state, metrics

@@ -12,7 +12,9 @@ Sampling is split in two: `draw` takes every random number a sample needs
 from a torch.Generator (env indices, and base-step integers or, for the
 prioritized path, the uniform variates of the Gumbel-max), and the
 deterministic `sample_from_draws` does the rest (n-step return, bootstrap
-discount, coherence mask, finite quarantine, importance weights).
+discount, coherence mask, finite quarantine, importance weights). The
+recurrent learner's windows split the same way: `draw_sequence` and
+`sample_sequence_from_draws`.
 
 Capacity = num_envs * ring_len (the reference uses 2M transitions, e.g.
 4096 envs x 512 slots).
@@ -50,10 +52,14 @@ class ReplayState:
   episode_step: torch.Tensor  # (E, T) int32: step index within episode.
   priority: torch.Tensor  # (E, T) float32 sampling priorities.
   total: int = 0  # Global steps written (shared cursor).
+  # Recurrent-actor state at the START of each stored step (R2D2
+  # stored-state replay, Kapturowski et al. 2019): (E, T, S) flattened
+  # carries, or None for feedforward agents.
+  actor_state: Optional[torch.Tensor] = None
 
 
 def init(num_envs: int, obs_dim: int, config: ReplayConfig,
-         device=None) -> ReplayState:
+         device=None, actor_state_dim: int = 0) -> ReplayState:
   t = config.ring_len
   zeros = lambda *shape, dtype=torch.float32: torch.zeros(
       shape, dtype=dtype, device=device)
@@ -64,12 +70,14 @@ def init(num_envs: int, obs_dim: int, config: ReplayConfig,
       terminal=zeros(num_envs, t, dtype=torch.bool),
       valid=zeros(num_envs, t, dtype=torch.bool),
       episode_step=zeros(num_envs, t, dtype=torch.int32),
-      priority=zeros(num_envs, t))
+      priority=zeros(num_envs, t),
+      actor_state=(zeros(num_envs, t, actor_state_dim) if actor_state_dim
+                   else None))
 
 
 @torch.no_grad()
 def add(state: ReplayState, config: ReplayConfig, obs, action, reward,
-        terminal, active, episode_step) -> ReplayState:
+        terminal, active, episode_step, actor_state=None) -> ReplayState:
   """Writes one lockstep batch of transitions (obs_t, a_t, r_t) in place.
 
   Args:
@@ -78,6 +86,8 @@ def add(state: ReplayState, config: ReplayConfig, obs, action, reward,
     active: (E,) whether the env was still live at this step (frozen
       post-terminal balloons write invalid slots).
     episode_step: (E,) step index within the current episode.
+    actor_state: (E, S) flattened recurrent-actor carries at this step
+      (required iff the ring was initialized with actor_state_dim).
   """
   slot = state.total % config.ring_len
   # New transitions get the current max priority (Dopamine convention) so
@@ -90,6 +100,8 @@ def add(state: ReplayState, config: ReplayConfig, obs, action, reward,
   state.terminal[:, slot] = terminal
   state.valid[:, slot] = active
   state.episode_step[:, slot] = episode_step
+  if state.actor_state is not None:
+    state.actor_state[:, slot] = actor_state
   state.total += 1
   return state
 
@@ -230,6 +242,83 @@ def update_priorities(state: ReplayState, config: ReplayConfig, env_idx,
   new_p = torch.where(torch.isfinite(new_p), new_p, 1.0)
   state.priority[env_idx, slot] = new_p
   return state
+
+
+def draw_sequence(state: ReplayState, config: ReplayConfig,
+                  generator: torch.Generator) -> Dict[str, torch.Tensor]:
+  """The random numbers of one sequence sample, on the generator's device:
+  env indices and start-step integers in [0, 2^31 - 1). Sequences are
+  drawn uniformly whether or not the ring is prioritized, as in ble_tpu."""
+  dev = generator.device
+  b = config.batch_size
+  return {'env_idx': torch.randint(0, state.obs.shape[0], (b,),
+                                   generator=generator, device=dev),
+          'time_draw': torch.randint(0, _INT32_MAX, (b,),
+                                     generator=generator, device=dev)}
+
+
+@torch.no_grad()
+def sample_sequence_from_draws(state: ReplayState, config: ReplayConfig,
+                               seq_len: int, env_idx, time_draw):
+  """Contiguous windows for recurrent (R2D2-style) learners (ble_tpu
+  replay.py:231-300) from the draws of `draw_sequence`: seq_len + 1
+  consecutive ring slots of each drawn env, one strided gather.
+
+  Returns a dict of (B, L+1, ...) leaves plus a per-step loss mask:
+  obs (B, L+1, D), action, reward and terminal (B, L+1), step_weight
+  (B, L): 1 where the 1-step transition t -> t+1 is written, inside one
+  episode, finite and not after a terminal; env_idx, slot (the window's
+  first slot), and start_state (B, S) when the ring stores actor states.
+  """
+  t_ring = config.ring_len
+  dev = state.obs.device
+  env_idx = env_idx.to(device=dev, dtype=torch.int64)
+  total = state.total
+  oldest = max(0, total - t_ring)
+  hi = max(oldest + 1, total - seq_len)
+  g = oldest + torch.remainder(time_draw.to(device=dev, dtype=torch.int64),
+                               max(hi - oldest, 1))
+  steps = torch.arange(seq_len + 1, device=dev)
+  slots = torch.remainder(g[:, None] + steps[None, :], t_ring)
+  rows = env_idx[:, None]
+  obs = state.obs[rows, slots].to(torch.float32)  # (B, L+1, D)
+  reward = state.reward[rows, slots]
+  terminal = state.terminal[rows, slots]
+  valid = state.valid[rows, slots]
+  ep_steps = state.episode_step[rows, slots]
+
+  # Step t's transition (t -> t+1) is trainable iff both slots were
+  # written, they belong to one episode (episode_step increments), no
+  # terminal occurred strictly before t inside the window, and the values
+  # are finite (the quarantine of `sample_from_draws`).
+  coherent = ep_steps == ep_steps[:, :1] + steps[None, :]
+  pair_ok = valid[:, :-1] & coherent[:, 1:]
+  no_term_before = torch.cumprod(torch.cat(
+      [torch.ones_like(terminal[:, :1], dtype=torch.int32),
+       1 - terminal[:, :-1].to(torch.int32)], dim=1), dim=1)[:, :-1]
+  finite = torch.isfinite(obs).all(dim=-1)
+  step_weight = (pair_ok & (no_term_before > 0) & finite[:, :-1] &
+                 finite[:, 1:] & torch.isfinite(reward[:, :-1])
+                 ).to(torch.float32)
+  out = {
+      'obs': obs,
+      'action': state.action[rows, slots],
+      'reward': reward,
+      'terminal': terminal,
+      'step_weight': step_weight,
+      'env_idx': env_idx,
+      'slot': slots[:, 0],
+  }
+  if state.actor_state is not None:
+    out['start_state'] = state.actor_state[env_idx, slots[:, 0]]
+  return out
+
+
+def sample_sequence(state: ReplayState, config: ReplayConfig,
+                    generator: torch.Generator, seq_len: int):
+  """`sample_sequence_from_draws` on fresh draws from `generator`."""
+  return sample_sequence_from_draws(state, config, seq_len,
+                                    **draw_sequence(state, config, generator))
 
 
 def can_sample(state: ReplayState, config: ReplayConfig,

@@ -76,10 +76,11 @@ def _dense_stack_from_flax(params) -> dict:
   """The state dict of a module whose parameters are `layers.i` nn.Linear
   from a flax tree of numpy arrays, {'params': {'Dense_i': {'kernel',
   'bias'}}}: each (in, out) kernel becomes an (out, in) weight, by
-  transpose; each bias carries across as it is."""
+  transpose; each bias carries across as it is. Other entries of the tree
+  are left out."""
   dense = params['params']
   out = {}
-  for i in range(len(dense)):
+  for i in range(sum(1 for k in dense if k.startswith('Dense_'))):
     layer = dense[f'Dense_{i}']
     out[f'layers.{i}.weight'] = torch.from_numpy(
         np.ascontiguousarray(np.asarray(layer['kernel'], np.float32).T))
@@ -102,3 +103,30 @@ def quantile_params_from_flax(params) -> dict:
 def mlp_params_from_flax(params) -> dict:
   """agents/networks.MLPNetwork's state dict."""
   return _dense_stack_from_flax(params)
+
+
+def lstm_quantile_params_from_flax(params, torso_layers: int = 2) -> dict:
+  """agents/networks.LstmQuantileNetwork's state dict from flax's
+  LstmQuantileNetwork tree: Dense_0 .. Dense_{torso_layers - 1} are the
+  torso, the Dense layers after them the head (hidden, value and advantage
+  when duelling). OptimizedLSTMCell_0's per-gate kernels ii/if/ig/io
+  (input, no bias) and hi/hf/hg/ho (recurrent, with bias) stack,
+  transposed, into nn.LSTM's rows in its gate order i, f, g, o; the
+  recurrent biases go to bias_hh, and bias_ih is zero."""
+  tree = params['params']
+  cell = tree['OptimizedLSTMCell_0']
+  dense = _dense_stack_from_flax(params)
+  out = {}
+  for key, value in dense.items():
+    i = int(key.split('.')[1])
+    prefix, j = ('torso', i) if i < torso_layers else (
+        'head', i - torso_layers)
+    out[f'{prefix}.{j}.{key.split(".")[2]}'] = value
+  stack = lambda kind: torch.from_numpy(np.ascontiguousarray(np.concatenate(
+      [np.asarray(cell[kind + g]['kernel'], np.float32).T for g in 'ifgo'])))
+  out['lstm.weight_ih_l0'] = stack('i')
+  out['lstm.weight_hh_l0'] = stack('h')
+  out['lstm.bias_hh_l0'] = torch.from_numpy(np.concatenate(
+      [np.asarray(cell['h' + g]['bias'], np.float32) for g in 'ifgo']))
+  out['lstm.bias_ih_l0'] = torch.zeros_like(out['lstm.bias_hh_l0'])
+  return out

@@ -1,10 +1,14 @@
 """Trained-model loading (the port of ble_tpu/models/loader.py; reference
-models/models.py:33-80).
+models/models.py:33-130).
 
-`offlineskies22_decoder.msgpack`, the flax msgpack of the VAE wind decoder,
-does not ship with the repository, so loading resolves in the JAX package's
-order: an explicit path, then $BLE_TPU_MODELS/<file>, then the file beside
-this module, then a deterministic untrained decoder drawn with seed 0.
+Neither trained blob ships with the repository, so loading resolves in the
+JAX package's order: an explicit path, then $BLE_TPU_MODELS/<file>, then
+the file beside this module, and then
+
+  offlineskies22_decoder.msgpack (the flax msgpack of the VAE wind
+    decoder): a deterministic untrained decoder drawn with seed 0;
+  perciatelli44.msgpack (the Nature-paper QR-DQN, converted offline from
+    perciatelli44.pb by models/convert_perciatelli44.py): FileNotFoundError.
 """
 
 import os
@@ -15,9 +19,11 @@ import torch
 
 from ble_tpu_torch import bridge
 from ble_tpu_torch import resolve_device
+from ble_tpu_torch.agents import qrdqn
 from ble_tpu_torch.generative import vae
 
 _OFFLINESKIES_FILENAME = 'offlineskies22_decoder.msgpack'
+_PERCIATELLI_FILENAME = 'perciatelli44.msgpack'
 # flax.serialization's msgpack extension code for an ndarray.
 _EXT_NDARRAY = 1
 
@@ -68,3 +74,19 @@ def load_offlineskies22(path: Optional[str] = None,
     params = vae.init_decoder_params(torch.Generator().manual_seed(0))
   decoder.load_state_dict(params)
   return decoder.to(device).eval()
+
+
+def load_perciatelli44(path: Optional[str] = None, device=None):
+  """The converted Perciatelli44 QuantileNetwork (8 x 600, 51 atoms, 3
+  actions) on `device` (default: cuda), its widths read from the blob.
+  Raises FileNotFoundError if no blob is found."""
+  device = resolve_device(device)
+  for candidate in _candidate_paths(_PERCIATELLI_FILENAME, path):
+    if os.path.exists(candidate):
+      with open(candidate, 'rb') as f:
+        params = bridge.quantile_params_from_flax(read_flax_msgpack(f.read()))
+      return qrdqn.network_from_params(params, device=device)
+  raise FileNotFoundError(
+      'perciatelli44.msgpack not found. Obtain perciatelli44.pb and run '
+      'python -m ble_tpu_torch.models.convert_perciatelli44 <pb> '
+      '<out.msgpack> once, then set $BLE_TPU_MODELS to its directory.')

@@ -7,13 +7,20 @@ results/eval/station_seeker_tiny_eval.json there):
 
 The generative field decodes one grid per seed with the VAE decoder that
 models/loader.py resolves (the deterministic fallback when no trained blob
-is found). `--agent quantile --checkpoint_dir <base_dir>` evaluates the
-greedy policy of the latest checkpoint that train.py wrote there.
+is found). `--agent quantile|finetune_perciatelli|dqn|mlp|r2d2
+--checkpoint_dir <base_dir>` evaluates the greedy policy of the latest
+checkpoint that train.py wrote there (r2d2's policy carries its LSTM state
+from step to step); `--agent perciatelli44`, and finetune_perciatelli
+without a checkpoint, the converted Perciatelli44 weights that
+models/loader.py resolves.
 """
 
 import argparse
 import os
 
+from ble_tpu_torch import resolve_device
+from ble_tpu_torch.agents import networks
+from ble_tpu_torch.agents import perciatelli44
 from ble_tpu_torch.agents import qrdqn
 from ble_tpu_torch.agents import random_walk
 from ble_tpu_torch.agents import station_seeker
@@ -24,7 +31,8 @@ from ble_tpu_torch.train import learner as learner_lib
 from ble_tpu_torch.train import suites
 from ble_tpu_torch.train import train_lib
 
-AGENTS = ('station_seeker', 'random', 'random_walk', 'quantile')
+AGENTS = ('station_seeker', 'random', 'random_walk', 'perciatelli44',
+          'quantile', 'finetune_perciatelli', 'dqn', 'mlp', 'r2d2')
 
 
 def make_policy_fns(agent_name: str, checkpoint_dir=None, device=None):
@@ -36,15 +44,29 @@ def make_policy_fns(agent_name: str, checkpoint_dir=None, device=None):
     return random_walk.random_policy(env_lib.NUM_ACTIONS)
   if agent_name == 'random_walk':
     return random_walk.init, random_walk.step
-  if agent_name == 'quantile':
+  if agent_name == 'perciatelli44':
+    policy = perciatelli44.make_policy(
+        loader.load_perciatelli44(device=device))
+    return (lambda n, gen: ()), lambda state, obs, gen: (state, policy(obs))
+  if agent_name in learner_lib.TRAINABLE_AGENTS:
+    config = learner_lib.TrainConfig(agent=agent_name)
+    if agent_name == 'finetune_perciatelli' and checkpoint_dir is None:
+      return learner_lib.make_eval_policy(
+          config, loader.load_perciatelli44(device=device))
     if checkpoint_dir is None:
       raise ValueError(f'{agent_name} needs --checkpoint_dir')
     # The network's widths come from the checkpoint's tensors, so the
     # training run's replay and env sizes do not matter here.
     params, _ = train_lib.restore_latest_learner_params(checkpoint_dir)
-    network = qrdqn.network_from_params(params, env_lib.NUM_ACTIONS, device)
-    return learner_lib.make_eval_policy(
-        learner_lib.TrainConfig(agent=agent_name), network)
+    if agent_name in ('dqn', 'mlp'):
+      network = networks.mlp_network_from_params(params, device)
+    elif agent_name == 'r2d2':
+      network = networks.lstm_network_from_params(
+          params, env_lib.NUM_ACTIONS, device)
+    else:
+      network = qrdqn.network_from_params(params, env_lib.NUM_ACTIONS,
+                                          device)
+    return learner_lib.make_eval_policy(config, network)
   raise ValueError(f'Unknown agent: {agent_name}')
 
 
@@ -61,7 +83,8 @@ def main(argv=None):
                       help='Where the results JSON goes (relative paths '
                       'from the working directory).')
   parser.add_argument('--checkpoint_dir', type=str, default=None,
-                      help='Base directory of a training run (quantile).')
+                      help='Base directory of a training run (the '
+                      'trainable agents).')
   parser.add_argument('--batch_size', type=int, default=4096,
                       help='Seeds evaluated per device batch.')
   parser.add_argument('--device', type=str, default='cuda')
@@ -71,19 +94,20 @@ def main(argv=None):
                       help='Disable the windowed field-slab cache.')
   args = parser.parse_args(argv)
 
+  device = resolve_device(args.device)
   suite = suites.get_eval_suite(args.suite)
   env_params = env_lib.EnvParams(wind_field_f32=args.f32_grid,
                                  field_cache=not args.no_field_cache)
   if args.wind_field == 'generative':
     field_fn = env_lib.make_field_fn(
-        'generative', loader.load_offlineskies22(device=args.device))
+        'generative', loader.load_offlineskies22(device=device))
   else:
     field_fn = env_lib.make_field_fn('static')
   policy_init, policy_step = make_policy_fns(args.agent, args.checkpoint_dir,
-                                             args.device)
+                                             device)
   eval_fn = eval_lib.build_eval_fn(
       env_params, field_fn, policy_init, policy_step,
-      max_steps=suite.max_episode_length, device=args.device)
+      max_steps=suite.max_episode_length, device=device)
   results = eval_lib.evaluate(eval_fn, suite.seeds,
                               batch_size=min(args.batch_size,
                                              len(suite.seeds)))

@@ -9,8 +9,9 @@ Examples, from the root of a checkout:
       --set replay.ring_len=64 --set replay.batch_size=8 \\
       --set qrdqn.min_replay_history=8
 
-Only `--agent quantile` is ported; the JAX package's other trainable agents
-raise NotImplementedError (ROADMAP A11). The generative field decodes one
+`--agent` takes every trainable agent of the JAX package: quantile,
+finetune_perciatelli, dqn, mlp and r2d2; `--set` reaches each one's config
+(qrdqn.*, dqn.*, r2d2.*) and replay.*. The generative field decodes one
 grid per world seed with the VAE decoder that models/loader.py resolves.
 """
 
@@ -93,7 +94,6 @@ def main(argv=None):
   device = resolve_device(args.device)
   config = learner_lib.TrainConfig(agent=args.agent)
   config = config_lib.apply_overrides(config, args.set)
-  learner_lib.make_agent_core(config)  # Unported agents raise here.
 
   env_params = env_lib.EnvParams(field_cache=not args.no_field_cache)
   if args.wind_field == 'generative':

@@ -64,24 +64,39 @@ def _from_tree(template, data):
         for f in dataclasses.fields(template)})
   if isinstance(template, torch.Tensor):
     return data.to(template.device)
+  if isinstance(template, tuple):
+    return tuple(_from_tree(t, d) for t, d in zip(template, data))
   return data
 
 
 def learner_state_dict(learner) -> dict:
-  return {'network': learner.network.state_dict(),
-          'target_network': learner.target_network.state_dict(),
-          'optimizer': learner.optimizer.state_dict(),
-          'train_steps': learner.train_steps}
+  """A learner state (a dataclass: qrdqn.LearnerState, or the MLP's
+  OnlineState with its per-env lanes) as a dict by field: each module's
+  and optimizer's state_dict, each tensor and int as it is."""
+  out = {}
+  for f in dataclasses.fields(learner):
+    value = getattr(learner, f.name)
+    if isinstance(value, (torch.nn.Module, torch.optim.Optimizer)):
+      value = value.state_dict()
+    out[f.name] = value
+  return out
 
 
 def load_learner_state(learner, data: dict) -> None:
-  """Loads learner_state_dict's data into `learner`, in place. Adam's
-  moments are copied: on the same device its load_state_dict would keep
-  the very tensors of `data`, which may be another learner's."""
-  learner.network.load_state_dict(data['network'])
-  learner.target_network.load_state_dict(data['target_network'])
-  learner.optimizer.load_state_dict(copy.deepcopy(data['optimizer']))
-  learner.train_steps = int(data['train_steps'])
+  """Loads learner_state_dict's data into `learner`, in place; tensors go
+  to the device of the ones they replace. Optimizer moments are copied: on
+  the same device load_state_dict would keep the very tensors of `data`,
+  which may be another learner's."""
+  for f in dataclasses.fields(learner):
+    value = getattr(learner, f.name)
+    if isinstance(value, torch.nn.Module):
+      value.load_state_dict(data[f.name])
+    elif isinstance(value, torch.optim.Optimizer):
+      value.load_state_dict(copy.deepcopy(data[f.name]))
+    elif isinstance(value, torch.Tensor):
+      setattr(learner, f.name, data[f.name].to(value.device, copy=True))
+    else:
+      setattr(learner, f.name, data[f.name])
 
 
 def train_state_dict(ts: learner_lib.TrainState) -> dict:
@@ -222,7 +237,8 @@ def run_training_loop(base_dir: Optional[str],
     completed_returns = []
     while steps_done < steps_per_iteration:
       # Inactive envs get fresh episodes at the chunk boundary.
-      ts, reset_stats = learner_lib.selective_reset(ts, env_params, field_fn)
+      ts, reset_stats = learner_lib.selective_reset(ts, env_params, field_fn,
+                                                    config)
       completed = reset_stats['completed'].cpu().numpy()
       if completed.any():
         completed_returns.extend(

@@ -67,6 +67,26 @@ Phases (each raises on a failure, so the exit code is then not 0):
              iteration of 8 env steps and again, resuming from its
              checkpoint. With phase kernels, B1 and B2 are also checked
              at E = 1024 on the train run's own state.
+  agents     the other trainable agents at full width over E = 1024
+             generative envs, MarcoPolo on, each from its own TrainState
+             around one reset: dqn (8 x 600 MLP), finetune_perciatelli
+             (the QR-DQN network; no blob, so a random init), mlp (one
+             linear layer) and r2d2 (2 x 600 torso, LSTM 256, duelling 51
+             atoms); a chunk of 8 env steps (mlp and r2d2 then a selective
+             reset whose envs must lose their lanes; r2d2 a second chunk),
+             2 steps with the learner timed apart and one under
+             torch.profiler. B1 and B2 must launch every env step,
+             train_steps match each agent's count (dqn and finetune 256,
+             r2d2 16 an env step once replay can sample, mlp one SGD step
+             every env step), losses finite, the online parameters moved,
+             replay.total the steps; each prints env-steps/s, gradient
+             steps/s, learner ms an env step, launches a train step and
+             peak memory. Then one train step card vs CPU for dqn and
+             r2d2 with phase train's limits and controls, the r2d2 train
+             CLI for one iteration and the eval CLI on its checkpoint
+             (micro_eval), and Perciatelli44 from synthetic parameters on
+             the card. With phase kernels, B1 and B2 are also checked at
+             E = 1024 on the r2d2 run's own state.
   timing     each kernel at its path's shapes with CUDA events, beside its
              plain version, a library call where one computes the same
              function or its dominant term, and its bound; for B1, B3, B4
@@ -114,7 +134,7 @@ DEV = 'cuda'
 E = 4096
 MAIN_STEPS = 128
 DEFAULT_PHASES = ('device', 'build', 'kernels', 'reference', 'gym', 'pair',
-                  'main', 'window', 'train', 'timing')
+                  'main', 'window', 'train', 'agents', 'timing')
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
 # float32 on the CUDA cores and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
@@ -1344,12 +1364,14 @@ def _trees_equal(got, want) -> bool:
 
 
 @contextlib.contextmanager
-def _timed_learner(times: list):
-  """Wraps learner.learn, the learner's share of an env step, in a host
+def _timed_learner(times: list, module=None, name: str = 'learn'):
+  """Wraps the learner's share of an env step, `module.name` (by default
+  learner.learn; mlp_agent.online_train for the online agent), in a host
   clock between two synchronisations; `times` gets one reading a call. The
   port itself carries no instrumentation."""
-  from ble_tpu_torch.train import learner as learner_lib
-  learn = learner_lib.learn
+  if module is None:
+    from ble_tpu_torch.train import learner as module
+  learn = getattr(module, name)
 
   def timed(*args, **kwargs):
     torch.cuda.synchronize()
@@ -1359,20 +1381,23 @@ def _timed_learner(times: list):
     times.append(time.perf_counter() - t)
     return out
 
-  learner_lib.learn = timed
+  setattr(module, name, timed)
   try:
     yield
   finally:
-    learner_lib.learn = learn
+    setattr(module, name, learn)
 
 
 def _train_step_errs(learner, cpu, before) -> dict:
   """How far `learner`'s step lies from the CPU learner's (the readings
   of TRAIN_PARAM_RTOL, TRAIN_GRAD_RTOL and TRAIN_UPDATE_RTOL); `before`
-  holds the parameters both started from."""
+  holds the parameters both started from. Tensors the optimizer does not
+  train (the LSTM's frozen input-side bias) are left out."""
   errs = {'params': 0.0, 'grads': 0.0, 'updates': 0.0}
   got = dict(learner.network.named_parameters())
   for k, w in cpu.network.named_parameters():
+    if not w.requires_grad:
+      continue
     card, w, g = got[k].detach().cpu(), w.detach(), w.grad
     errs['params'] = max(errs['params'], float(
         (card - w).abs().max() / w.abs().max()))
@@ -1384,66 +1409,98 @@ def _train_step_errs(learner, cpu, before) -> dict:
   return errs
 
 
+# The field of TrainConfig that holds each trainable agent's own config.
+AGENT_CONFIG = {'quantile': 'qrdqn', 'finetune_perciatelli': 'qrdqn',
+                'dqn': 'dqn', 'r2d2': 'r2d2'}
+
+
+@contextlib.contextmanager
+def _tf32(matmul: bool, cudnn: bool):
+  """TF32 allowed in cuBLAS matmuls and/or cuDNN (the LSTM) inside the
+  block; the precision policy's full float32 restored after it."""
+  torch.backends.cuda.matmul.allow_tf32 = matmul
+  torch.backends.cudnn.allow_tf32 = cudnn
+  try:
+    yield
+  finally:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision('highest')
+  check(not torch.backends.cuda.matmul.allow_tf32 and
+        not torch.backends.cudnn.allow_tf32, 'TF32 left on')
+
+
 def check_train_step(config, ts) -> dict:
-  """One train_step on the card against the same step on the CPU, from the
-  card learner's parameters and Adam state and one replay batch: params,
-  grads and updates (_train_step_errs) to their limits, the loss to 1e-5
-  relative. Then the controls, each a faulty step on the card from the
-  same start against the same CPU step, each of which must break one of
-  the limits: the step with TF32 matmuls (which the precision policy
-  rules out), and the step at 1.1 times the learning rate (a wrong
-  optimizer)."""
+  """One train step of the agent on the card against the same step on the
+  CPU, from the card learner's parameters and Adam state and one replay
+  batch (n-step, or sequence windows for r2d2): params, grads and updates
+  (_train_step_errs) to their limits, the loss to 1e-5 relative. Then the
+  controls, each a faulty step on the card from the same start against
+  the same CPU step, each of which must break one of the limits: the step
+  with TF32 in matmuls and cuDNN (which the precision policy rules out),
+  and the step at 1.1 times the learning rate (a wrong optimizer); for a
+  recurrent agent also the step with TF32 in cuDNN alone, which shows
+  that the LSTM (cuDNN's on the card) runs in full float32."""
   import copy
-  from ble_tpu_torch.agents import qrdqn
   from ble_tpu_torch.agents import replay
+  from ble_tpu_torch.train import learner as learner_lib
   from ble_tpu_torch.train import train_lib
-  batch = replay.sample(ts.replay, config.replay, ts.generator)
+  core = learner_lib.make_agent_core(config)
+  name = config.agent
+  if core.sample_kind == 'sequence':
+    batch = replay.sample_sequence(ts.replay, config.replay, ts.generator,
+                                   core.seq_len)
+  else:
+    batch = replay.sample(ts.replay, config.replay, ts.generator)
   start = copy.deepcopy(train_lib.learner_state_dict(ts.learner))
 
   def learner_at_start(device):
-    learner = qrdqn.init(torch.Generator().manual_seed(0), config.qrdqn,
-                         ts.obs.shape[1], device)
+    learner = core.init(torch.Generator().manual_seed(0), ts.obs.shape[1],
+                        device)
     train_lib.load_learner_state(learner, start)
     return learner
 
   cpu = learner_at_start('cpu')
   before = {k: v.detach().cpu().double()
             for k, v in ts.learner.network.state_dict().items()}
-  _, card_m = qrdqn.train_step(config.qrdqn, ts.learner, batch)
-  _, cpu_m = qrdqn.train_step(config.qrdqn, cpu,
-                              {k: v.cpu() for k, v in batch.items()})
+  _, card_m = core.train_step(ts.learner, batch, None)
+  _, cpu_m = core.train_step(cpu, {k: v.cpu() for k, v in batch.items()},
+                             None)
   errs = _train_step_errs(ts.learner, cpu, before)
   loss_err = abs(float(card_m['loss']) - float(cpu_m['loss'])) / abs(
       float(cpu_m['loss']))
-  log('train: one train_step card vs cpu, max over tensors of relative '
+  valid = ('' if 'valid_frac' not in cpu_m else
+           f'; batch valid_frac {float(cpu_m["valid_frac"]):.3f}')
+  log(f'{name}: one train_step card vs cpu, max over tensors of relative '
       f'|card - cpu|: {json.dumps(errs)}; loss {float(card_m["loss"]):.6g} '
-      f'vs {float(cpu_m["loss"]):.6g} (relative {loss_err:.3g}); batch '
-      f'valid_frac {float(cpu_m["valid_frac"]):.3f}')
+      f'vs {float(cpu_m["loss"]):.6g} (relative {loss_err:.3g}){valid}')
   limits = {'params': TRAIN_PARAM_RTOL, 'grads': TRAIN_GRAD_RTOL,
             'updates': TRAIN_UPDATE_RTOL}
   for key, limit in limits.items():
-    check(errs[key] <= limit, f'train step {key} {errs[key]} > {limit}')
-  check(loss_err <= 1e-5, f'train step loss {loss_err}')
+    check(errs[key] <= limit, f'{name} train step {key} {errs[key]} > {limit}')
+  check(loss_err <= 1e-5, f'{name} train step loss {loss_err}')
 
   controls = {}
   learner = learner_at_start(DEV)
-  torch.backends.cuda.matmul.allow_tf32 = True
-  try:
-    qrdqn.train_step(config.qrdqn, learner, batch)
-  finally:
-    torch.set_float32_matmul_precision('highest')
-  check(not torch.backends.cuda.matmul.allow_tf32, 'TF32 left on')
+  with _tf32(matmul=True, cudnn=True):
+    core.train_step(learner, batch, None)
   controls['tf32'] = _train_step_errs(learner, cpu, before)
+  if core.sample_kind == 'sequence':
+    learner = learner_at_start(DEV)
+    with _tf32(matmul=False, cudnn=True):
+      core.train_step(learner, batch, None)
+    controls['tf32 in cudnn alone'] = _train_step_errs(learner, cpu, before)
+  field = AGENT_CONFIG[name]
+  sub = getattr(config, field)
+  faulty = dataclasses.replace(config, **{field: dataclasses.replace(
+      sub, learning_rate=1.1 * sub.learning_rate)})
   learner = learner_at_start(DEV)
-  qrdqn.train_step(dataclasses.replace(
-      config.qrdqn, learning_rate=1.1 * config.qrdqn.learning_rate),
-                   learner, batch)
+  learner_lib.make_agent_core(faulty).train_step(learner, batch, None)
   controls['lr x 1.1'] = _train_step_errs(learner, cpu, before)
-  log('train: controls, faulty steps on the card vs the sound cpu step:',
+  log(f'{name}: controls, faulty steps on the card vs the sound cpu step:',
       json.dumps(controls))
-  for name, ctrl in controls.items():
+  for control, ctrl in controls.items():
     check(any(ctrl[k] > limit for k, limit in limits.items()),
-          f'the train-step limits pass the {name} control: {ctrl}')
+          f'the {name} train-step limits pass the {control} control: {ctrl}')
   return errs
 
 
@@ -1607,7 +1664,7 @@ def phase_train(field_fn):
   forced = torch.arange(TRAIN_E, device=DEV) % 8 == 0
   ts.active = ts.active & ~forced
   t = time.perf_counter()
-  ts, stats = learner_lib.selective_reset(ts, params, field_fn)
+  ts, stats = learner_lib.selective_reset(ts, params, field_fn, config)
   torch.cuda.synchronize()
   reset_s = time.perf_counter() - t
   b2_inputs = []
@@ -1700,6 +1757,307 @@ def phase_train(field_fn):
           'gp_window_train': launches['gp_window']}, ts, b2_inputs
 
 
+# The agents of phase `agents`, each at its default (full) width.
+AGENTS = ('dqn', 'finetune_perciatelli', 'mlp', 'r2d2')
+AGENTS_CHUNK = 8
+AGENTS_TIMED_STEPS = 2
+
+
+def _agent_widths(config, network) -> dict:
+  """The network's widths, checked against the agent's default config."""
+  if config.agent == 'r2d2':
+    rc = config.r2d2
+    check(len(network.torso) == rc.torso_layers == 2 and
+          network.torso[0].out_features == rc.hidden_units == 600 and
+          network.lstm_units == rc.lstm_units == 256 and
+          network.num_atoms == rc.num_atoms == 51 and network.duelling,
+          'r2d2 network is not 2 x 600, LSTM 256, duelling 51 atoms')
+    return {'torso': [600, 600], 'lstm': 256, 'atoms': 51, 'duelling': True}
+  if config.agent == 'mlp':
+    check(len(network.layers) == 1 and network.layers[0].in_features == 1099
+          and network.layers[0].out_features == 3,
+          'mlp network is not one linear layer 1099 -> 3')
+    return {'layers': [1099, 3]}
+  check(len(network.layers) == 8 and network.layers[0].out_features == 600,
+        f'{config.agent} network is not 8 x 600')
+  out = {'layers': 8, 'hidden': 600}
+  if config.agent == 'finetune_perciatelli':
+    check(network.num_atoms == 51, 'finetune network has not 51 atoms')
+    out['atoms'] = 51
+  return out
+
+
+def run_agent(name, params, field_fn, env_state, obs, counts) -> dict:
+  """One trainable agent at its default config over E = TRAIN_E envs from
+  `env_state` (cloned), MarcoPolo on: one run_episode_chunk of
+  AGENTS_CHUNK env steps; for the agents with per-env lanes (mlp, r2d2)
+  a selective_reset with every eighth env forced inactive, whose lanes
+  must be dropped; for r2d2 a second chunk (its first trainable window
+  step needs burn_in + 2 = 10 written slots); then AGENTS_TIMED_STEPS
+  steps with the learner timed apart, and one under torch.profiler.
+  Gates: B1 and B2 launched every env step; train_steps = the agent's
+  train steps an env step x the steps at which replay could sample (mlp:
+  one SGD step every env step); losses finite; the online parameters
+  moved; replay.total = the steps."""
+  from ble_tpu_torch.agents import mlp_agent
+  from ble_tpu_torch.env import env as env_lib
+  from ble_tpu_torch.train import learner as learner_lib
+  config = learner_lib.TrainConfig(agent=name, num_envs=TRAIN_E)
+  core = learner_lib.make_agent_core(config)
+  torch.cuda.reset_peak_memory_stats()
+  t = time.perf_counter()
+  ts = learner_lib.train_state_from_envs(
+      config, env_lib.tree_map(torch.clone, env_state), obs.clone(), seed=0)
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t
+  widths = _agent_widths(config, ts.learner.network)
+  check(tuple(ts.replay.obs.shape) == (TRAIN_E, 512, 1099) and
+        config.use_marco_polo, f'{name}: replay or exploration not full size')
+  start = [p.detach().clone() for p in ts.learner.network.parameters()]
+  before = counts()
+  losses, b2_inputs, chunk_s = [], [], []
+
+  def chunk(ts, steps):
+    t = time.perf_counter()
+    with _last_b2_inputs(b2_inputs):
+      ts, m = learner_lib.run_episode_chunk(config, params, ts, steps)
+    torch.cuda.synchronize()
+    chunk_s.append(time.perf_counter() - t)
+    losses.append(m['loss'])
+    check(bool(torch.isfinite(m['reward']).all()), f'{name}: rewards')
+    return ts
+
+  ts = chunk(ts, AGENTS_CHUNK)
+  steps = AGENTS_CHUNK
+  reset = {}
+  if core.on_reset is not None or core.actor_reset is not None:
+    forced = torch.arange(TRAIN_E, device=DEV) % 8 == 0
+    ts.active = ts.active & ~forced
+    ts, _ = learner_lib.selective_reset(ts, params, field_fn, config)
+    if name == 'mlp':
+      check(not bool(ts.learner.p_valid[forced].any()) and
+            bool(ts.learner.p_valid[~forced].all()),
+            'mlp: reset envs kept their pending lanes')
+    else:
+      for c in ts.actor:
+        check(not bool(c[forced].any()) and bool(c[~forced].any()),
+              'r2d2: reset envs kept their LSTM carry')
+    reset = {'forced_envs': int(forced.sum())}
+  if name == 'r2d2':
+    ts = chunk(ts, AGENTS_CHUNK)
+    steps += AGENTS_CHUNK
+
+  times = []
+  module, fn = ((mlp_agent, 'online_train') if not core.uses_replay
+                else (learner_lib, 'learn'))
+  t = time.perf_counter()
+  with _timed_learner(times, module, fn):
+    ts = chunk(ts, AGENTS_TIMED_STEPS)
+  split_s = time.perf_counter() - t
+  steps += AGENTS_TIMED_STEPS
+  check(len(times) == AGENTS_TIMED_STEPS, f'{name}: the learner did not run')
+
+  def one_step():
+    nonlocal ts
+    ts, m = learner_lib.env_step(config, params, ts)
+    losses.append(m['loss'][None])
+    torch.cuda.synchronize()
+
+  device_ms, profiled_launches, _ = device_time(one_step, 1)
+  steps += 1
+  after = counts()
+  launches = {k: after[k] - before[k] for k in after}
+  check(launches['physics'] >= steps and launches['gp_window'] >= steps,
+        f'{name}: B1 or B2 not launched every env step: {launches}')
+  per_env_step = (config.grad_steps_per_env_step() if core.uses_replay
+                  else 1)
+  if core.uses_replay:
+    first = core.min_replay_history // TRAIN_E + config.replay.n_step
+    trained = sum(1 for total in range(1, steps + 1) if total > first)
+  else:
+    trained = steps
+  check(ts.learner.train_steps == per_env_step * trained,
+        f'{name}: train_steps {ts.learner.train_steps} != {per_env_step} x '
+        f'{trained}')
+  check(ts.replay.total == steps == ts.env_steps,
+        f'{name}: replay.total {ts.replay.total} after {steps} steps')
+  loss = torch.cat(losses)
+  check(bool(torch.isfinite(loss).all()), f'{name}: loss not finite')
+  check(bool((loss > 0).any()), f'{name}: loss never above 0')
+  moved = any(not torch.equal(a, b) for a, b in
+              zip(start, ts.learner.network.parameters()))
+  check(moved, f'{name}: the online parameters did not move')
+  check(bool(torch.isfinite(ts.obs).all()), f'{name}: observations')
+  learner_s = sum(times)
+  wall_ms = 1e3 * split_s / AGENTS_TIMED_STEPS
+  summary = {
+      'widths': widths, 'envs': TRAIN_E, 'env_steps': steps,
+      'trained_env_steps': trained, 'train_steps': ts.learner.train_steps,
+      'train_steps_per_env_step': per_env_step, **reset,
+      'init_s': init_s, 'chunk_s': chunk_s,
+      'env_steps_per_s': TRAIN_E * AGENTS_TIMED_STEPS / split_s,
+      'grad_steps_per_s': per_env_step * AGENTS_TIMED_STEPS / learner_s,
+      'ms_per_env_step': wall_ms,
+      'learner_ms_per_env_step': 1e3 * learner_s / AGENTS_TIMED_STEPS,
+      'env_ms_per_env_step': 1e3 * (split_s - learner_s) / AGENTS_TIMED_STEPS,
+      'profiled_device_ms_per_env_step': device_ms,
+      'profiled_launches_per_env_step': profiled_launches,
+      'launches_per_train_step': profiled_launches / per_env_step,
+      'device_busy_share': device_ms / wall_ms,
+      'loss_first_nonzero_last': [float(loss[loss > 0][0]),
+                                  float(loss[-1])],
+      'launches': launches,
+      'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9,
+  }
+  log(f'agents: {name} on {nvidia_smi_line()}:', json.dumps(summary))
+  return {'ts': ts, 'launches': launches, 'b2': b2_inputs,
+          'summary': summary}
+
+
+def check_agent_clis(config) -> None:
+  """`train --agent r2d2` as a user runs it (no --device, so on the card,
+  TrainConfig's defaults) for one iteration of AGENTS_CHUNK env steps: B1
+  and B2 launched every env step, its train steps, its full checkpoint;
+  then `eval --agent r2d2 --checkpoint_dir` on it over micro_eval (one
+  seed, 960 steps): finite rewards, time within radius in [0, 1]; and the
+  eval CLI's r2d2 policy threads its LSTM carry (zero at the start,
+  moved after a step)."""
+  import os
+  import tempfile
+  from ble_tpu_torch.train import eval as eval_cli
+  from ble_tpu_torch.train import train
+  with tempfile.TemporaryDirectory() as d:
+    argv = ['--agent', 'r2d2', '--base_dir', d, '--num_iterations', '1',
+            '--max_episode_length', str(AGENTS_CHUNK)]
+    counts = _reset_counts()
+    t = time.perf_counter()
+    ts = train.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    launches = counts()
+    first = config.r2d2.min_replay_history // TRAIN_E + config.replay.n_step
+    check(launches['physics'] >= AGENTS_CHUNK and
+          launches['gp_window'] >= AGENTS_CHUNK,
+          f'r2d2 train CLI: B1 or B2 not launched every step: {launches}')
+    check(ts.replay.total == AGENTS_CHUNK and ts.learner.train_steps ==
+          config.grad_steps_per_env_step() * (AGENTS_CHUNK - first),
+          f'r2d2 train CLI: train_steps {ts.learner.train_steps}')
+    check(ts.replay.obs.is_cuda and ts.actor[0].is_cuda and
+          tuple(ts.actor[0].shape) == (TRAIN_E, 256),
+          'r2d2 train CLI: state not on the card at full size')
+    ckpts = sorted(os.listdir(os.path.join(d, 'checkpoints')))
+    check(ckpts == ['ckpt_00000000.pt'], f'r2d2 train CLI checkpoints {ckpts}')
+    obs = ts.obs[:4].clone()
+    del ts
+    torch.cuda.empty_cache()
+
+    policy_init, policy_step = eval_cli.make_policy_fns('r2d2', d, DEV)
+    gen = torch.Generator(DEV)
+    carry = policy_init(4, gen)
+    check(all(c.is_cuda and tuple(c.shape) == (4, 256) and not bool(c.any())
+              for c in carry), 'r2d2 eval policy: carry not zero at start')
+    carry, actions = policy_step(carry, obs, gen)
+    check(all(bool(c.any()) for c in carry) and actions.is_cuda,
+          'r2d2 eval policy: the carry did not move')
+
+    out_dir = os.path.join(d, 'eval')
+    t = time.perf_counter()
+    eval_cli.main(['--agent', 'r2d2', '--checkpoint_dir', d, '--suite',
+                   'micro_eval', '--output_dir', out_dir])
+    eval_s = time.perf_counter() - t
+    with open(os.path.join(out_dir, 'r2d2_micro_eval.json')) as f:
+      results = json.load(f)['results']
+    check(len(results) == 1 and
+          0.0 <= results[0]['time_within_radius'] <= 1.0 and
+          np.isfinite(results[0]['cumulative_reward']),
+          f'r2d2 eval CLI results {results}')
+  log(f'agents: train CLI {" ".join(argv[:2] + argv[4:])}: {train_s:.2f} s, '
+      f'launches {json.dumps(launches)}; eval CLI --agent r2d2 --suite '
+      f'micro_eval on its checkpoint: {eval_s:.2f} s, '
+      f'{results[0]["final_timestep"]} steps, cumulative reward '
+      f'{results[0]["cumulative_reward"]:.3f}, time within radius '
+      f'{results[0]["time_within_radius"]:.3f}')
+
+
+def check_perciatelli44(obs) -> None:
+  """Perciatelli44 from synthetic 8 x 600, 51-atom parameters (no trained
+  blob is in the repository) acts on the card through make_policy: the
+  agent's actions on a few of `obs` equal the same network's greedy
+  actions on the CPU."""
+  from ble_tpu_torch.agents import perciatelli44
+  from ble_tpu_torch.agents import qrdqn
+  params = qrdqn.init(torch.Generator().manual_seed(3), qrdqn.QrDqnConfig(),
+                      1099, 'cpu').network.state_dict()
+  agent = perciatelli44.Perciatelli44(3, (1099,), params=params)
+  obs = obs[:8].cpu().numpy()
+  got = [agent.begin_episode(obs[0])] + [agent.step(0.0, o) for o in obs[1:]]
+  cpu = perciatelli44.make_policy(qrdqn.network_from_params(params,
+                                                            device='cpu'))
+  want = cpu(torch.from_numpy(obs)).tolist()
+  check(got == want, f'Perciatelli44 on the card {got} != cpu {want}')
+  log(f'agents: Perciatelli44(params=synthetic) on the card acts as on the '
+      f'cpu: {got}')
+
+
+def phase_agents(field_fn) -> dict:
+  """The other trainable agents at full width: dqn (8 x 600 MLP, Adam lr
+  2e-6, epsilon 0.01), finetune_perciatelli (the 8 x 600, 51-atom QR-DQN;
+  no blob is in the repository, so a random init with a warning), mlp
+  (the online SARSA layer 1099 -> 3) and r2d2 (2 x 600 torso, LSTM 256,
+  duelling 51 atoms, windows of 24 with burn-in 8, 16 train steps an env
+  step), each from its own TrainState around one reset of E = TRAIN_E
+  generative envs (run_agent). Then one train step on the card against
+  the CPU for dqn and r2d2 (check_train_step: phase train's limits and
+  controls), the r2d2 train and eval CLIs (check_agent_clis) and
+  Perciatelli44 on the card (check_perciatelli44). Returns the path's
+  launches over the four agents' runs, r2d2's final env state and its
+  last B2 inputs (the agents rows' data)."""
+  from ble_tpu_torch.env import env as env_lib
+  from ble_tpu_torch.models import loader
+  from ble_tpu_torch.train import learner as learner_lib
+  params = env_lib.EnvParams(field_cache=True)
+  first = learner_lib.first_world_seed(0)
+  t = t0 = time.perf_counter()
+  env_state, obs = env_lib.reset(params, list(range(first, first + TRAIN_E)),
+                                 field_fn, DEV)
+  torch.cuda.synchronize()
+  log(f'agents: reset of E={TRAIN_E} generative envs in '
+      f'{time.perf_counter() - t:.2f} s')
+  try:
+    loader.load_perciatelli44()
+  except FileNotFoundError:
+    log('agents: finetune_perciatelli starts from the random init (no '
+        'perciatelli44 blob; the learner logs a warning)')
+  counts = _reset_counts()
+  launches = {'physics': 0, 'gp_window': 0}
+  summaries = {}
+  out = None
+  for name in AGENTS:
+    run = run_agent(name, params, field_fn, env_state, obs, counts)
+    for k in launches:
+      launches[k] += run['launches'][k]
+    summaries[name] = run['summary']
+    if name in ('dqn', 'r2d2'):
+      check_train_step(learner_lib.TrainConfig(agent=name, num_envs=TRAIN_E),
+                       run['ts'])
+    if name == 'r2d2':
+      out = {'state': run['ts'].env_state, 'b2': run['b2'],
+             'obs': run['ts'].obs}
+    del run
+    torch.cuda.empty_cache()
+  log('agents: launches over the four runs', json.dumps(launches))
+  log('agents: env-steps/s', json.dumps(
+      {k: v['env_steps_per_s'] for k, v in summaries.items()}))
+  log(f'agents: the four runs and their checks in '
+      f'{time.perf_counter() - t0:.1f} s')
+  check_agent_clis(learner_lib.TrainConfig(agent='r2d2', num_envs=TRAIN_E))
+  check_perciatelli44(out['obs'])
+  log(f'agents: phase done in {time.perf_counter() - t0:.1f} s')
+  return {'launches': {'physics_agents': launches['physics'],
+                       'gp_window_agents': launches['gp_window']},
+          'state': out['state'], 'b2': out['b2'], 'summaries': summaries}
+
+
 def time_b1(params, state) -> dict:
   """B1 at the batch of `state` with random actions."""
   from ble_tpu_torch.env import balloon as balloon_lib
@@ -1788,14 +2146,15 @@ def time_b2(gp_state, obs=None) -> dict:
 
 
 def phase_timing(params, state, gp_state, gym_state, train_state,
-                 train_b2, window_out) -> dict:
+                 train_b2, window_out, agents_out=None) -> dict:
   """Each kernel at the batch of the path its launches are counted on:
   B1 and B2 at E = 4096 (main); B1 on the window run's final state and B2
   at K = 8 on its last window's GP state and observations, E = 4096
   (window); B1 and B5 on the gym run's final state
   and B3 on a GP state warmed past the ring, E = 1 (gym); B4 and B5 at
   E = 4096 (pair); B1 on the train run's final env state and B2 on the
-  train run's own GP state and observations, E = 1024 (train)."""
+  train run's own GP state and observations, E = 1024 (train); the same
+  on the r2d2 run of phase agents, E = 1024 (agents)."""
   out = {'physics': time_b1(params, state)}
   if window_out is not None:
     out['physics_window'] = time_b1(params, window_out['state'])
@@ -1803,6 +2162,9 @@ def phase_timing(params, state, gp_state, gym_state, train_state,
   if train_state is not None:
     out['physics_train'] = time_b1(params, train_state.env_state)
     out['gp_window_train'] = time_b2(*train_b2)
+  if agents_out is not None:
+    out['physics_agents'] = time_b1(params, agents_out['state'])
+    out['gp_window_agents'] = time_b2(*agents_out['b2'])
   if gym_state is not None:
     b = gym_state.balloon
     out['physics_gym'] = time_b1(params, gym_state)
@@ -1984,8 +2346,8 @@ def main(argv=None) -> int:
 
   params = env_lib.EnvParams(field_cache=True)
   field_fn = state0 = obs0 = gp_state = None
-  if phases & {'kernels', 'pair', 'main', 'window', 'train', 'timing',
-                'numerics', 'profile', 'splits'}:
+  if phases & {'kernels', 'pair', 'main', 'window', 'train', 'agents',
+                'timing', 'numerics', 'profile', 'splits'}:
     field_fn = generative_field_fn()
   if phases & {'kernels', 'main', 'window', 'timing', 'numerics', 'profile',
                 'splits'}:
@@ -2016,7 +2378,7 @@ def main(argv=None) -> int:
   # with every count set to 0 just before it and read just after: B1, B3
   # and B5 on the gym path (E = 1), B4 and B5 on the pair path, B1 and B2
   # on the main path (E = 4096), on the window path (E = 4096, B2 at K = 8)
-  # and on the train path (E = 1024).
+  # and on the train and agents paths (E = 1024).
   launches = {}
   gym_state = None
   if 'gym' in phases:
@@ -2045,10 +2407,18 @@ def main(argv=None) -> int:
     if 'kernels' in phases:
       errs['physics_train'] = check_b1(params, train_state.env_state)
       errs['gp_window_train'] = check_b2(train_b2[0], 1, train_b2[1])
+  agents_out = None
+  if 'agents' in phases:
+    agents_out = phase_agents(field_fn)
+    launches.update(agents_out['launches'])
+    if 'kernels' in phases:
+      errs['physics_agents'] = check_b1(params, agents_out['state'])
+      errs['gp_window_agents'] = check_b2(agents_out['b2'][0], 1,
+                                          agents_out['b2'][1])
   timing = {}
   if 'timing' in phases:
     timing = phase_timing(params, state0, gp_state, gym_state, train_state,
-                          train_b2, window_out)
+                          train_b2, window_out, agents_out)
   if 'profile' in phases:
     phase_profile(params, field_fn, state0, obs0)
 
@@ -2067,6 +2437,8 @@ def main(argv=None) -> int:
       'gp_window_window': b2 + (f'window, E={E}, K={WINDOW_K}',),
       'physics_train': b1 + (f'train, E={TRAIN_E}',),
       'gp_window_train': b2 + (f'train, E={TRAIN_E}',),
+      'physics_agents': b1 + (f'agents, E={TRAIN_E}',),
+      'gp_window_agents': b2 + (f'agents, E={TRAIN_E}',),
       'gp_observe_b3': ('ble_tpu_torch/csrc/gp_observe.cu',
                         'ble_tpu/ops/pallas_gp_observe.py:265', 'gym, E=1'),
       'gp_observe_b4': ('ble_tpu_torch/csrc/gp_observe.cu',

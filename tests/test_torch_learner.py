@@ -183,7 +183,7 @@ def test_selective_reset_resets_only_inactive_envs():
   old_x = ts.env_state.balloon.x_m.clone()
   old_seed = ts.next_world_seed
   assert old_seed == learner.first_world_seed(0) + 4
-  ts2, stats = learner.selective_reset(ts, params, field_fn)
+  ts2, stats = learner.selective_reset(ts, params, field_fn, config)
   steps = ts2.episode_step
   x = ts2.env_state.balloon.x_m
   assert int(steps[0]) == 0 and int(steps[2]) == 0
@@ -204,15 +204,29 @@ def test_selective_reset_resets_only_inactive_envs():
   assert torch.equal(ts2.obs[[0, 2]], fresh_obs)
   assert torch.equal(ts2.env_state.gp.kinv[[0, 2]], fresh.gp.kinv)
   # No inactive env: nothing changes.
-  ts3, _ = learner.selective_reset(ts2, params, field_fn)
+  ts3, _ = learner.selective_reset(ts2, params, field_fn, config)
   assert ts3 is ts2
 
 
 def test_unported_agents_raise_and_unknown_agents_are_rejected():
-  for agent in ('finetune_perciatelli', 'dqn', 'mlp', 'r2d2'):
-    with pytest.raises(NotImplementedError, match='A11'):
-      learner.make_agent_core(learner.TrainConfig(agent=agent))
+  """No trainable agent is left unported: make_agent_core serves every name
+  of TRAINABLE_AGENTS, ble_tpu's list, with ble_tpu's replay use, sample
+  kind, exploration default and train steps an env step (256 for the
+  feedforward agents, 16 for r2d2's windows); an unknown name raises."""
+  assert learner.TRAINABLE_AGENTS == jax_learner.TRAINABLE_AGENTS
+  for agent in learner.TRAINABLE_AGENTS:
+    core = learner.make_agent_core(learner.TrainConfig(agent=agent))
+    want = jax_learner.make_agent_core(jax_learner.TrainConfig(agent=agent))
+    assert core.name == want.name == agent
+    assert core.uses_replay == want.uses_replay
+    assert core.sample_kind == want.sample_kind
+    assert core.seq_len == want.seq_len
+    assert core.epsilon_train == want.epsilon_train
+    assert core.min_replay_history == want.min_replay_history
+    assert (learner.TrainConfig(agent=agent).grad_steps_per_env_step() ==
+            jax_learner.TrainConfig(agent=agent).grad_steps_per_env_step())
   with pytest.raises(ValueError, match='Unknown'):
     learner.make_agent_core(learner.TrainConfig(agent='sarsa'))
   assert learner.TrainConfig().grad_steps_per_env_step() == 256
   assert jax_learner.TrainConfig().grad_steps_per_env_step() == 256
+  assert learner.TrainConfig(agent='r2d2').grad_steps_per_env_step() == 16

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import ble_tpu_torch
+from ble_tpu_torch.agents import base
 from ble_tpu_torch.agents import station_seeker
 from ble_tpu_torch.env import balloon
 from ble_tpu_torch.env import env as env_lib
@@ -129,6 +130,34 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     train_cli.main(['--wind_field', 'static', '--num_iterations', '1'])
   # Asked for explicitly, the CPU is used.
   assert ble_tpu_torch.resolve_device('cpu') == torch.device('cpu')
+
+
+@pytest.mark.parametrize('agent', learner.TRAINABLE_AGENTS)
+def test_train_cli_raises_without_a_card_for_each_agent(no_cuda, agent):
+  with pytest.raises(RuntimeError, match='CUDA'):
+    train_cli.main(['--agent', agent, '--wind_field', 'static',
+                    '--num_iterations', '1'])
+
+
+@pytest.mark.parametrize('agent', eval_cli.AGENTS)
+def test_eval_cli_raises_without_a_card_for_each_agent(no_cuda, agent,
+                                                       tmp_path):
+  for field in ('generative', 'static'):
+    with pytest.raises(RuntimeError, match='CUDA'):
+      eval_cli.main(['--agent', agent, '--suite', 'micro_eval',
+                     '--wind_field', field, '--checkpoint_dir',
+                     str(tmp_path)])
+
+
+def test_agents_and_perciatelli_loader_raise_without_a_card(no_cuda):
+  """load_perciatelli44 and the agents with networks default to the card:
+  without one they raise before looking for a blob or drawing weights."""
+  with pytest.raises(RuntimeError, match='CUDA'):
+    loader.load_perciatelli44()
+  for name in ('perciatelli44', 'quantile', 'finetune_perciatelli', 'dqn',
+               'mlp'):
+    with pytest.raises(RuntimeError, match='CUDA'):
+      base.create_agent(name, num_actions=3, observation_shape=(1099,))
 
 
 def test_kernel_launchers_refuse_cpu_tensors():

@@ -116,18 +116,23 @@ def test_checkpoint_keeps_max_to_keep_and_light_restores_params(tmp_path):
 
 
 def test_apply_overrides_matches_jax():
-  """Nested overrides of every type agree with ble_tpu.config's on the
-  fields both TrainConfigs have; bad paths raise."""
+  """Nested overrides of every type, the agents' own configs (qrdqn.*,
+  dqn.*, r2d2.*) included, agree with ble_tpu.config's on every field of
+  both TrainConfigs, and so do r2d2's train steps an env step; bad paths
+  raise."""
   overrides = ['num_envs=16', 'qrdqn.learning_rate=1e-5',
                'replay.prioritized=true', 'use_marco_polo=0',
                'qrdqn.lr_warmup_steps=7', 'samples_per_insert=4',
-               'replay.n_step=3']
+               'replay.n_step=3', 'dqn.hidden_units=64',
+               'dqn.epsilon_train=0.05', 'r2d2.seq_len=12',
+               'r2d2.stored_state=true', 'agent=r2d2']
   got = config_lib.apply_overrides(learner.TrainConfig(), overrides)
   want = jax_config.apply_overrides(jax_learner.TrainConfig(), overrides)
   for name in ('num_envs', 'use_marco_polo', 'samples_per_insert',
                'episode_length', 'epsilon_train'):
     assert getattr(got, name) == getattr(want, name), name
-  for sub in ('qrdqn', 'replay'):
+  assert got.agent == want.agent == 'r2d2'
+  for sub in ('qrdqn', 'dqn', 'r2d2', 'replay'):
     g, w = getattr(got, sub), getattr(want, sub)
     for field in g.__dataclass_fields__:
       assert getattr(g, field) == getattr(w, field), f'{sub}.{field}'
@@ -143,7 +148,9 @@ def test_train_and_eval_clis_run_end_to_end(tmp_path, monkeypatch):
   """train.main on the CPU (static field, 4 envs, 2 iterations of 8
   steps) writes checkpoints; eval.main --agent quantile --checkpoint_dir
   evaluates their greedy policy (micro_eval cut to 8 steps here) and
-  writes its results; other trainable agents raise NotImplementedError."""
+  writes its results. Another trainable agent, dqn, trains through the
+  same CLI in a base_dir of its own (tests/test_torch_agents_cli.py runs
+  every agent through both CLIs)."""
   base = str(tmp_path / 'run')
   args = ['--device', 'cpu', '--wind_field', 'static', '--base_dir', base,
           '--num_iterations', '2', '--max_episode_length', '8']
@@ -152,8 +159,13 @@ def test_train_and_eval_clis_run_end_to_end(tmp_path, monkeypatch):
   ts = train_cli.main(args)
   assert ts.env_steps == 16 and ts.obs.device == torch.device('cpu')
   assert len(os.listdir(os.path.join(base, 'checkpoints'))) == 2
-  with pytest.raises(NotImplementedError, match='A11'):
-    train_cli.main(args + ['--agent', 'dqn'])
+  dqn = ['--device', 'cpu', '--wind_field', 'static', '--agent', 'dqn',
+         '--base_dir', str(tmp_path / 'dqn'), '--num_iterations', '1',
+         '--max_episode_length', '8', '--set', 'num_envs=4',
+         '--set', 'replay.ring_len=64', '--set', 'replay.batch_size=8',
+         '--set', 'dqn.min_replay_history=8', '--set', 'dqn.num_layers=2',
+         '--set', 'dqn.hidden_units=32']
+  assert train_cli.main(dqn).learner.train_steps > 0
 
   monkeypatch.setattr(eval_cli.suites, 'get_eval_suite',
                       lambda name: suites.EvaluationSuite([0, 1], 8))
