@@ -18,6 +18,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ble_tpu_torch import resolve_device
+
 
 class AgentMode(enum.Enum):
   TRAIN = 'train'
@@ -96,21 +98,21 @@ def create_agent(name: str, num_actions: int,
 
 class FunctionalAgent(Agent):
   """Adapts a batched functional policy to the stateful Agent API: one
-  observation is a batch of one env, a tensor on `device`. The host-side
-  agents (StationSeeker, the random walk) keep the CPU default; the
+  observation is a batch of one env, a tensor on `device` (default: cuda,
+  as every entry point of the port; pass device='cpu' for the CPU). The
   agents with networks pass the device their networks live on."""
 
   def __init__(self, num_actions: int, observation_shape: Sequence[int],
                init_fn: Callable[[int, torch.Generator], Any],
                policy_fn: Callable[[Any, torch.Tensor, torch.Generator],
                                    Tuple[Any, torch.Tensor]],
-               seed: Optional[int] = None, device='cpu'):
+               seed: Optional[int] = None, device=None):
     super().__init__(num_actions, observation_shape)
     self._init_fn = init_fn
     self._policy_fn = policy_fn
     self._generator = torch.Generator().manual_seed(0 if seed is None
                                                     else seed)
-    self._device = torch.device(device)
+    self._device = resolve_device(device)
     self._state = None
 
   def begin_episode(self, observation) -> int:

@@ -10,7 +10,6 @@ lives, on the generator's device; actions go to the observations' device.
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from ble_tpu_torch.agents import base
@@ -73,23 +72,22 @@ def random_policy(num_actions: int):
 @base.register('random_walk')
 class RandomWalkAgent(base.FunctionalAgent):
 
-  def __init__(self, num_actions, observation_shape, seed=None):
+  def __init__(self, num_actions, observation_shape, seed=None, device=None):
     super().__init__(num_actions, observation_shape, init_fn=init,
-                     policy_fn=step, seed=seed)
+                     policy_fn=step, seed=seed, device=device)
 
   def begin_episode(self, observation) -> int:
     # The first action uses the fresh target without drift
     # (random_walk_agent.py:75-78).
     self._state = init(1, self._generator)
-    obs = torch.as_tensor(np.asarray(observation, np.float32))[None]
-    return int(select_action(self._state, obs)[0])
+    return int(select_action(self._state, self._observation(observation))[0])
 
 
 @base.register('random')
 class RandomAgent(base.FunctionalAgent):
   """Uniform random policy (reference agents/agent.py:149-162)."""
 
-  def __init__(self, num_actions, observation_shape, seed=None):
+  def __init__(self, num_actions, observation_shape, seed=None, device=None):
     init_fn, policy_fn = random_policy(num_actions)
     super().__init__(num_actions, observation_shape, init_fn=init_fn,
-                     policy_fn=policy_fn, seed=seed)
+                     policy_fn=policy_fn, seed=seed, device=device)

@@ -72,9 +72,9 @@ def pick_action(observation):
 @base.register('station_seeker')
 class StationSeekerAgent(base.FunctionalAgent):
 
-  def __init__(self, num_actions, observation_shape, seed=None):
+  def __init__(self, num_actions, observation_shape, seed=None, device=None):
     super().__init__(num_actions, observation_shape,
                      init_fn=lambda n, generator: (),
                      policy_fn=lambda state, obs, generator: (
                          state, pick_action(obs)),
-                     seed=seed)
+                     seed=seed, device=device)

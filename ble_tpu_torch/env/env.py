@@ -192,12 +192,21 @@ def reset(params: EnvParams, seeds, field_fn, device=None):
   return reset_from_field(params, field_fn(seeds, device), seeds, device)
 
 
+# Latents a decoder call. cuBLAS picks a GEMM by its row count, and two
+# GEMMs may sum in other orders, so on the card a seed's decoded field
+# would differ in its last bits with the number of seeds decoded beside it
+# (a rank's share of the envs, a selective reset's count, an eval shard).
+# Every call decodes exactly this many rows.
+DECODE_BLOCK = 16
+
+
 def make_field_fn(kind: str = 'generative', decoder=None):
   """A field_fn(seeds, device) for `reset`.
 
   kinds: 'generative' decodes one grid per seed with `decoder`
   (generative/vae.Decoder), from a latent drawn from that seed's own
-  generator, so a seed's world does not depend on its batch:
+  generator, in decoder calls of DECODE_BLOCK latents each (the last one
+  padded), so a seed's world does not depend on its batch, to the bit:
   (E, 21, 21, 10, 9, 2). 'static' is the 4-direction test field
   (reference wind_field.py:149-184), one grid shared by every env.
   """
@@ -213,8 +222,10 @@ def make_field_fn(kind: str = 'generative', decoder=None):
     z = torch.stack([vae.sample_latent(torch.Generator().manual_seed(
         int(s) + FORECAST_SEED_OFFSET)) for s in seeds])
     z = z.to(next(decoder.parameters()).device)
-    # Chunks of 1024 bound the decoder's float32 intermediates.
-    return torch.cat([decoder(c).to(device) for c in z.split(1024)])
+    n = z.shape[0]
+    z = torch.cat([z, z.new_zeros(((-n) % DECODE_BLOCK, z.shape[1]))])
+    return torch.cat([decoder(c).to(device)
+                      for c in z.split(DECODE_BLOCK)])[:n]
 
   return field_fn
 

@@ -13,6 +13,12 @@ checkpoint that train.py wrote there (r2d2's policy carries its LSTM state
 from step to step); `--agent perciatelli44`, and finetune_perciatelli
 without a checkpoint, the converted Perciatelli44 weights that
 models/loader.py resolves.
+
+`--num_shards N --shard_idx i` evaluates the seeds suite.seeds[i::N] and
+adds _<i> to the output's name (reference eval/eval.py:125-128); python -m
+ble_tpu_torch.train.combine_eval_shards merges the shards' files.
+`--flight_path` also records each seed's track (x, y, pressure,
+superpressure, elapsed seconds, state of charge) up to its final step.
 """
 
 import argparse
@@ -87,6 +93,10 @@ def main(argv=None):
                       'trainable agents).')
   parser.add_argument('--batch_size', type=int, default=4096,
                       help='Seeds evaluated per device batch.')
+  parser.add_argument('--num_shards', type=int, default=1)
+  parser.add_argument('--shard_idx', type=int, default=0)
+  parser.add_argument('--flight_path', action='store_true',
+                      help='Record each seed\'s flight path in the JSON.')
   parser.add_argument('--device', type=str, default='cuda')
   parser.add_argument('--f32_grid', action='store_true',
                       help='Store forecast grids in float32 instead of bf16.')
@@ -94,8 +104,12 @@ def main(argv=None):
                       help='Disable the windowed field-slab cache.')
   args = parser.parse_args(argv)
 
+  if not 0 <= args.shard_idx < args.num_shards:
+    raise ValueError(f'--shard_idx {args.shard_idx} outside '
+                     f'[0, {args.num_shards})')
   device = resolve_device(args.device)
   suite = suites.get_eval_suite(args.suite)
+  seeds = suite.seeds[args.shard_idx::args.num_shards]
   env_params = env_lib.EnvParams(wind_field_f32=args.f32_grid,
                                  field_cache=not args.no_field_cache)
   if args.wind_field == 'generative':
@@ -107,12 +121,14 @@ def main(argv=None):
                                              device)
   eval_fn = eval_lib.build_eval_fn(
       env_params, field_fn, policy_init, policy_step,
-      max_steps=suite.max_episode_length, device=device)
-  results = eval_lib.evaluate(eval_fn, suite.seeds,
-                              batch_size=min(args.batch_size,
-                                             len(suite.seeds)))
+      max_steps=suite.max_episode_length,
+      record_flight_path=args.flight_path, device=device)
+  results = eval_lib.evaluate(eval_fn, seeds,
+                              batch_size=min(args.batch_size, len(seeds)))
   os.makedirs(args.output_dir, exist_ok=True)
-  out_path = os.path.join(args.output_dir, f'{args.agent}_{args.suite}.json')
+  shard = f'_{args.shard_idx}' if args.num_shards > 1 else ''
+  out_path = os.path.join(args.output_dir,
+                          f'{args.agent}_{args.suite}{shard}.json')
   eval_lib.write_results_json(results, out_path, args.agent, args.suite)
   print(eval_lib.summarize(results))
   print(f'Wrote {out_path}')

@@ -10,10 +10,11 @@ time_within_radius = steps within radius / steps taken.
 
 import dataclasses
 import json
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ble_tpu_torch import resolve_device
 from ble_tpu_torch.env import env as env_lib
@@ -155,6 +156,24 @@ def evaluate(eval_fn, seeds: Sequence[int], batch_size: int = 0
   return results
 
 
+def evaluate_distributed(eval_fn, seeds: Sequence[int], batch_size: int = 0
+                         ) -> List[EvaluationResult]:
+  """`evaluate` with the seeds split across the ranks of the process group
+  (the counterpart of ble_tpu's build_eval_fn(mesh=...)): each rank
+  evaluates one contiguous block of the seeds, and every rank returns the
+  whole list in seed order. Outside a process group, `evaluate`."""
+  seeds = [int(s) for s in seeds]
+  if not (dist.is_available() and dist.is_initialized()):
+    return evaluate(eval_fn, seeds, batch_size)
+  rank, size = dist.get_rank(), dist.get_world_size()
+  block = -(-len(seeds) // size)
+  mine = seeds[rank * block:(rank + 1) * block]
+  local = evaluate(eval_fn, mine, batch_size) if mine else []
+  gathered = [None] * size
+  dist.all_gather_object(gathered, local)
+  return [r for part in gathered for r in part]
+
+
 def write_results_json(results: List[EvaluationResult], path: str,
                        agent_name: str = '', suite_name: str = '') -> None:
   payload = {
@@ -164,6 +183,17 @@ def write_results_json(results: List[EvaluationResult], path: str,
   }
   with open(path, 'w') as f:
     json.dump(payload, f)
+
+
+def combine_shard_results(paths: Sequence[str]) -> List[Dict[str, Any]]:
+  """The results of per-shard JSON files (write_results_json's), merged and
+  sorted by seed (reference eval/combine_eval_shards.py)."""
+  combined = []
+  for path in paths:
+    with open(path) as f:
+      combined.extend(json.load(f)['results'])
+  combined.sort(key=lambda r: r['seed'])
+  return combined
 
 
 def summarize(results: List[EvaluationResult]) -> Dict[str, float]:

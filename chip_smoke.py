@@ -84,9 +84,37 @@ Phases (each raises on a failure, so the exit code is then not 0):
              peak memory. Then one train step card vs CPU for dqn and
              r2d2 with phase train's limits and controls, the r2d2 train
              CLI for one iteration and the eval CLI on its checkpoint
-             (micro_eval), and Perciatelli44 from synthetic parameters on
+             (micro_eval's seed, cut to 128 steps for the time limit),
+             and Perciatelli44 from synthetic parameters on
              the card. With phase kernels, B1 and B2 are also checked at
              E = 1024 on the r2d2 run's own state.
+  distributed
+             the data-parallel trainer and the sharded eval, each process
+             group in worker processes (`chip_smoke.py --worker ...`) that
+             end with their part. (a) `distributed_train --n_devices 1`
+             (world 1, NCCL) at TrainConfig's defaults over E = 1024
+             generative envs, one chunk of 8 env steps with a checkpoint:
+             B1 and B2 every env step and one all-reduce a train step (its
+             JSON line), train_steps 256 x the steps that could sample,
+             finite losses, the learner against a single-process
+             run_episode_chunk from the same seed (phase train's limits;
+             whether the bits are equal is printed), env-steps/s, gradient
+             steps/s and the all-reduce's share of a train step under
+             torch.profiler beside phase train's, then the eval CLI
+             (--agent quantile, micro_eval) on the checkpoint. (b) two
+             ranks of 64 envs on the one card over gloo (NCCL refuses two
+             ranks on one GPU) against one process of 128: greedy,
+             MarcoPolo off, no learning, a forced selective_reset;
+             observations, pressure, replay rows, counters and world seeds
+             equal in bits; then with learning on every parameter within
+             1e-6 of the ranks' mean. (c) eval_lib on 16 seeds for 64
+             StationSeeker steps: two --num_shards 2 slices merged by
+             combine_shard_results equal the unsharded run. (d) the
+             tensor-parallel demo on a (1, 1) mesh over NCCL: 10 finite,
+             falling losses. B1 and B2 are also checked against their plain
+             versions on (a)'s final state and last B2 inputs in its
+             worker, and timed there with phase timing (the
+             physics_distributed and gp_window_distributed rows).
   timing     each kernel at its path's shapes with CUDA events, beside its
              plain version, a library call where one computes the same
              function or its dominant term, and its bound; for B1, B3, B4
@@ -134,7 +162,8 @@ DEV = 'cuda'
 E = 4096
 MAIN_STEPS = 128
 DEFAULT_PHASES = ('device', 'build', 'kernels', 'reference', 'gym', 'pair',
-                  'main', 'window', 'train', 'agents', 'timing')
+                  'main', 'window', 'train', 'agents', 'distributed',
+                  'timing')
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
 # float32 on the CUDA cores and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
@@ -1000,27 +1029,40 @@ def phase_gym() -> dict:
   exactly, state of charge within 1e-3 (the golden trajectory's bounds,
   tests/test_golden_trajectory.py:39-46). Then the step's wall time, and
   its device time and busy share under torch.profiler over 16 more steps.
+  The StationSeeker agent, and the random and random-walk agents that
+  act once on the last observation, are built as a user builds them,
+  through agents.base.create_agent with no device: on the card.
   Returns the launches of the path's kernels and the env's state, at which
   phase timing times B1 and B5 at E = 1."""
-  from ble_tpu_torch.agents import station_seeker
+  from ble_tpu_torch.agents import base
   from ble_tpu_torch.env import gym_env
   env = gym_env.BalloonEnv(wind_field='generative', seed=7, device=DEV)
   obs, info = env.reset(seed=7)
   check(obs.shape == (1099,) and info == {}, 'gym reset output')
+  agent = base.create_agent('station_seeker', num_actions=3,
+                            observation_shape=(1099,))
+  check(agent._device.type == 'cuda', 'StationSeekerAgent not on the card')
   actions, infos = [], []
   counts = _reset_counts()
   t = time.perf_counter()
+  action = agent.begin_episode(obs)
   for _ in range(GYM_STEPS):
-    action = int(station_seeker.pick_action(torch.from_numpy(obs)[None])[0])
     obs, reward, terminated, truncated, info = env.step(action)
     check(obs.shape == (1099,) and bool(np.isfinite(obs).all()),
           'gym observation not finite')
     check(0.0 <= reward <= 1.0 and truncated is False, 'gym step output')
     actions.append(action)
     infos.append(info)
+    action = agent.step(reward, obs)
   torch.cuda.synchronize()
   wall_ms = 1e3 * (time.perf_counter() - t) / GYM_STEPS
   launches = counts()
+  for name in ('random', 'random_walk'):
+    other = base.create_agent(name, num_actions=3, observation_shape=(1099,),
+                              seed=0)
+    check(other._device.type == 'cuda' and
+          other.begin_episode(obs) in (0, 1, 2) and
+          other.step(0.0, obs) in (0, 1, 2), f'gym: agent {name} on the card')
   log(f'gym: {GYM_STEPS} steps, launches {json.dumps(launches)}, '
       f'{wall_ms:.2f} ms a step, terminated {terminated}')
   for name in ('physics', 'gp_observe', 'gp_query'):
@@ -1634,8 +1676,8 @@ def phase_train(field_fn):
   TRAIN_SPLIT_STEPS more steps with the learner timed apart, one more
   under torch.profiler, one train_step against the CPU, the checkpoint
   round trips, and the training CLI (check_train_cli). Returns the path's
-  launches, its final state, and B2's inputs at the last env step of the
-  second chunk (the train rows' data)."""
+  launches, its final state, B2's inputs at the last env step of the
+  second chunk (the train rows' data) and its readings."""
   from torch.autograd import DeviceType
   from ble_tpu_torch.env import env as env_lib
   from ble_tpu_torch.train import learner as learner_lib
@@ -1754,13 +1796,16 @@ def phase_train(field_fn):
   check_train_checkpoints(config, ts)
   check_train_cli(config)
   return {'physics_train': launches['physics'],
-          'gp_window_train': launches['gp_window']}, ts, b2_inputs
+          'gp_window_train': launches['gp_window']}, ts, b2_inputs, summary
 
 
 # The agents of phase `agents`, each at its default (full) width.
 AGENTS = ('dqn', 'finetune_perciatelli', 'mlp', 'r2d2')
 AGENTS_CHUNK = 8
 AGENTS_TIMED_STEPS = 2
+# The r2d2 eval CLI's episode: micro_eval's one seed, cut from 960 steps
+# for the script's time limit (960 steps of one env took 92-131 s).
+AGENTS_EVAL_STEPS = 128
 
 
 def _agent_widths(config, network) -> dict:
@@ -1919,12 +1964,14 @@ def check_agent_clis(config) -> None:
   TrainConfig's defaults) for one iteration of AGENTS_CHUNK env steps: B1
   and B2 launched every env step, its train steps, its full checkpoint;
   then `eval --agent r2d2 --checkpoint_dir` on it over micro_eval (one
-  seed, 960 steps): finite rewards, time within radius in [0, 1]; and the
+  seed, cut to AGENTS_EVAL_STEPS steps): finite rewards, time within
+  radius in [0, 1], at most that many steps taken; and the
   eval CLI's r2d2 policy threads its LSTM carry (zero at the start,
   moved after a step)."""
   import os
   import tempfile
   from ble_tpu_torch.train import eval as eval_cli
+  from ble_tpu_torch.train import suites
   from ble_tpu_torch.train import train
   with tempfile.TemporaryDirectory() as d:
     argv = ['--agent', 'r2d2', '--base_dir', d, '--num_iterations', '1',
@@ -1961,19 +2008,28 @@ def check_agent_clis(config) -> None:
           'r2d2 eval policy: the carry did not move')
 
     out_dir = os.path.join(d, 'eval')
+    get_eval_suite = suites.get_eval_suite
+    seeds = get_eval_suite('micro_eval').seeds
+    suites.get_eval_suite = lambda name: suites.EvaluationSuite(
+        seeds, AGENTS_EVAL_STEPS)
     t = time.perf_counter()
-    eval_cli.main(['--agent', 'r2d2', '--checkpoint_dir', d, '--suite',
-                   'micro_eval', '--output_dir', out_dir])
+    try:
+      eval_cli.main(['--agent', 'r2d2', '--checkpoint_dir', d, '--suite',
+                     'micro_eval', '--output_dir', out_dir])
+    finally:
+      suites.get_eval_suite = get_eval_suite
     eval_s = time.perf_counter() - t
     with open(os.path.join(out_dir, 'r2d2_micro_eval.json')) as f:
       results = json.load(f)['results']
     check(len(results) == 1 and
           0.0 <= results[0]['time_within_radius'] <= 1.0 and
-          np.isfinite(results[0]['cumulative_reward']),
+          np.isfinite(results[0]['cumulative_reward']) and
+          0 < results[0]['final_timestep'] <= AGENTS_EVAL_STEPS,
           f'r2d2 eval CLI results {results}')
   log(f'agents: train CLI {" ".join(argv[:2] + argv[4:])}: {train_s:.2f} s, '
       f'launches {json.dumps(launches)}; eval CLI --agent r2d2 --suite '
-      f'micro_eval on its checkpoint: {eval_s:.2f} s, '
+      f'micro_eval (cut to {AGENTS_EVAL_STEPS} steps) on its checkpoint: '
+      f'{eval_s:.2f} s, '
       f'{results[0]["final_timestep"]} steps, cumulative reward '
       f'{results[0]["cumulative_reward"]:.3f}, time within radius '
       f'{results[0]["time_within_radius"]:.3f}')
@@ -2056,6 +2112,610 @@ def phase_agents(field_fn) -> dict:
   return {'launches': {'physics_agents': launches['physics'],
                        'gp_window_agents': launches['gp_window']},
           'state': out['state'], 'b2': out['b2'], 'summaries': summaries}
+
+
+# ------------------------------------------------------- distributed ----
+
+
+# Part (a): one chunk of DIST_CHUNK env steps of the distributed CLI at
+# world 1 (NCCL), the chunk's last step under torch.profiler. Part (b):
+# two ranks of GLOO_E envs on the one card over gloo (NCCL refuses two
+# ranks on one GPU), GLOO_STEPS steps on each side of a forced reset, then
+# GLOO_LEARN_STEPS with learning on. Part (c): the sharded eval of
+# SHARD_SEEDS seeds for SHARD_STEPS steps. Part (d): TP_STEPS steps of the
+# tensor-parallel demo on a (1, 1) mesh.
+DIST_CHUNK = 8
+# `--set` overrides of part (a)'s CLI and its reference run: none, so
+# TrainConfig's defaults (a CPU rehearsal cuts them).
+DIST_SETS = ()
+GLOO_E = 64
+GLOO_STEPS = 4
+GLOO_LEARN_STEPS = 8
+SHARD_SEEDS = 16
+SHARD_STEPS = 64
+TP_STEPS = 10
+WORKER_TIMEOUT_S = 480
+ALLREDUCE_LABEL = 'learner: train step: all-reduce'
+
+
+def _start(cmd: list):
+  """Starts `cmd` from the script's directory with its output in a
+  temporary file; returns (name, process, file)."""
+  import os
+  import tempfile
+  f = tempfile.TemporaryFile(mode='w+')
+  proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, text=True,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+  return ' '.join(cmd[1:4]), proc, f
+
+
+def _stop(started) -> None:
+  """Kills whatever of `started` still runs."""
+  for _, proc, _ in started:
+    if proc.poll() is None:
+      proc.kill()
+      proc.wait()
+
+
+def _finish(started, timeout: float = WORKER_TIMEOUT_S) -> list:
+  """Waits for `started` (from _start), kills any still running at the
+  timeout, logs each one's output and fails if one failed. Returns their
+  outputs."""
+  try:
+    deadline = time.monotonic() + timeout
+    for _, proc, _ in started:
+      proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+  finally:
+    _stop(started)
+  outs = []
+  for name, proc, f in started:
+    f.seek(0)
+    outs.append(f.read())
+    f.close()
+    log(f'{name} (exit {proc.returncode}):\n{outs[-1].rstrip()}')
+    check(proc.returncode == 0, f'{name} failed: {proc.returncode}')
+  return outs
+
+
+def _run_workers(argvs, timeout: float = WORKER_TIMEOUT_S) -> list:
+  """Runs `python3 chip_smoke.py --worker <argv>` for each argv, all at
+  once (_finish); returns their outputs."""
+  import os
+  return _finish([_start([sys.executable, os.path.abspath(__file__),
+                          '--worker', *argv]) for argv in argvs], timeout)
+
+
+def _gloo_config(num_envs: int, learning: bool):
+  """Part (b)'s learner: QR-DQN 2 x 64, 11 atoms, greedy, MarcoPolo off;
+  without learning, min_replay_history beyond the run."""
+  from ble_tpu_torch.agents import qrdqn
+  from ble_tpu_torch.agents import replay
+  from ble_tpu_torch.train import learner as learner_lib
+  return learner_lib.TrainConfig(
+      num_envs=num_envs, use_marco_polo=False,
+      qrdqn=qrdqn.QrDqnConfig(num_layers=2, hidden_units=64, num_atoms=11,
+                              min_replay_history=2 if learning else 10**6),
+      replay=replay.ReplayConfig(ring_len=32, batch_size=32))
+
+
+def _forced(num_envs: int) -> torch.Tensor:
+  """The envs part (b) forces into its reset: every fifth from index 1."""
+  return torch.arange(num_envs, device=DEV) % 5 == 1
+
+
+def _recording(field_fn, seen: list):
+  def recorded(seeds, device):
+    seen.append([int(s) for s in seeds])
+    return field_fn(seeds, device)
+  return recorded
+
+
+def _gloo_snapshot(ts, seen) -> dict:
+  rep = ts.replay
+  return {'obs': ts.obs.cpu(),
+          'pressure': ts.env_state.balloon.pressure_pa.cpu(),
+          'replay': {k: getattr(rep, k).cpu() for k in (
+              'obs', 'action', 'reward', 'terminal', 'valid')},
+          'seeds': [list(s) for s in seen],
+          'counters': [rep.total, ts.next_world_seed, ts.episodes_done,
+                       ts.env_steps]}
+
+
+def _allreduce_ms(grads, init_method: str) -> dict:
+  """The gradient all-reduce alone on the run's gradients, in a new
+  world-1 group, by CUDA events over back-to-back calls (host-bound, so
+  what each call costs the train step): grad_allreduce's one collective,
+  and one all-reduce and division a tensor, what the flat buffer
+  replaces."""
+  from ble_tpu_torch.parallel import distributed
+  distributed.init_process_group(DEV, rank=0, world_size=1,
+                                 init_method=init_method)
+  try:
+    flat = distributed.grad_allreduce(1)
+
+    def per_tensor():
+      for g in grads:
+        torch.distributed.all_reduce(g)
+        g.div_(1)
+
+    return {'tensors': len(grads),
+            'mb': 4e-6 * sum(g.numel() for g in grads),
+            'flat_ms': cuda_ms(lambda: flat(grads), reps=50),
+            'per_tensor_ms': cuda_ms(per_tensor, reps=50)}
+  finally:
+    torch.distributed.destroy_process_group()
+
+
+def worker_train(out_path: str, timing: str, *cli_argv) -> None:
+  """Part (a) in a process of its own: `distributed_train.main(cli_argv)`
+  (world 1: one worker, in this process), each env step timed between
+  two synchronisations with the learner timed apart, the chunk's last env
+  step under torch.profiler with the gradient all-reduce in a range of
+  its own. Then B1 and B2 against their plain versions on the run's final
+  state and last B2 inputs, and, with `timing`, their rows' times. Writes
+  its readings as JSON to out_path."""
+  from torch.autograd import DeviceType
+  import ble_tpu_torch  # noqa: F401  (sets the float32 precision policy)
+  from ble_tpu_torch.env import env as env_lib
+  from ble_tpu_torch.parallel import distributed
+  from ble_tpu_torch.train import distributed_train
+  from ble_tpu_torch.train import learner as learner_lib
+  step_s, learn_s, losses, session = [], [], [], []
+  env_step = learner_lib.env_step
+
+  def timed_env_step(*args, **kwargs):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    if len(step_s) == DIST_CHUNK - 1:
+      out = []
+
+      def run():
+        out.append(env_step(*args, **kwargs))
+        torch.cuda.synchronize()
+
+      with _train_ranges(), _ranges([(distributed.grad_allreduce,
+                                      '__call__', ALLREDUCE_LABEL)]):
+        session.append(device_time(run, 1))
+      result = out[0]
+    else:
+      result = env_step(*args, **kwargs)
+    torch.cuda.synchronize()
+    step_s.append(time.perf_counter() - t)
+    losses.append(float(result[1]['loss']))
+    return result
+
+  b2 = []
+  counts = _reset_counts()
+  learner_lib.env_step = timed_env_step
+  try:
+    with _timed_learner(learn_s), _last_b2_inputs(b2):
+      ts = distributed_train.main(list(cli_argv))
+  finally:
+    learner_lib.env_step = env_step
+  launches = counts()
+  check(ts is not None and ts.obs.device.type == torch.device(DEV).type,
+        'distributed CLI: no state on the card')
+
+  device_ms, launches_per_step, events = session[0]
+  cuda = [e for e in events
+          if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+  nccl = [e for e in cuda if 'nccl' in e.key.lower()]
+  parts = [e for e in events
+           if e.key.startswith('step/') and e.device_type == DeviceType.CPU]
+  ranges = {e.key[len('step/'):]: e.cpu_time_total / 1e3 for e in parts}
+  device_ranges = {e.key[len('step/'):]: e.device_time_total / 1e3
+                   for e in parts}
+  per_env_step = ts.learner.train_steps // max(len(learn_s), 1)
+  # The unprofiled env steps that trained: each but the last has a
+  # learner reading.
+  timed = learn_s[:-1]
+  timed_steps = step_s[DIST_CHUNK - 1 - len(timed):DIST_CHUNK - 1]
+  n = ts.obs.shape[0]
+  summary = {
+      'envs': n, 'env_steps': len(step_s),
+      'trained_env_steps': len(learn_s),
+      'train_steps': ts.learner.train_steps,
+      'env_steps_per_s': n * len(timed_steps) / sum(timed_steps),
+      'grad_steps_per_s': per_env_step * len(timed) / sum(timed),
+      'ms_per_env_step': 1e3 * sum(timed_steps) / len(timed_steps),
+      'learner_ms_per_env_step': 1e3 * sum(timed) / len(timed),
+      'step_ms': [1e3 * s for s in step_s],
+      'losses': losses,
+      'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9}
+  profile = {
+      'device_ms': device_ms, 'launches': launches_per_step,
+      'launches_per_train_step': launches_per_step / per_env_step,
+      'nccl_kernels': sum(e.count for e in nccl),
+      'nccl_device_ms': sum(e.self_device_time_total for e in nccl) / 1e3,
+      'host_ms_by_part': {k: round(v, 3) for k, v in sorted(ranges.items())},
+      'device_ms_by_part': {k: round(v, 3)
+                            for k, v in sorted(device_ranges.items())},
+      'allreduce_host_share_of_train_step':
+          ranges[ALLREDUCE_LABEL] / ranges['learner: train step'],
+      'allreduce_device_share': device_ranges[ALLREDUCE_LABEL] / device_ms}
+  log(events.table(sort_by='self_cpu_time_total', row_limit=15,
+                   max_name_column_width=60))
+  grads = [p.grad for p in ts.learner.network.parameters()
+           if p.requires_grad]
+  profile['unprofiled'] = _allreduce_ms(
+      grads, 'file://' + out_path + '.rendezvous')
+  profile['unprofiled']['train_step_ms'] = (
+      summary['learner_ms_per_env_step'] / per_env_step)
+  params = env_lib.EnvParams(field_cache=True)
+  out = {'launches': launches, 'summary': summary, 'profile': profile,
+         'errs': {'physics_distributed': check_b1(params, ts.env_state),
+                  'gp_window_distributed': check_b2(b2[0], 1, b2[1])},
+         'timing': {}}
+  if timing == 'timing':
+    out['timing'] = {'physics_distributed': time_b1(params, ts.env_state),
+                     'gp_window_distributed': time_b2(*b2)}
+  with open(out_path, 'w') as f:
+    json.dump(out, f)
+
+
+def worker_gloo(out_dir: str, rank: str, init_method: str) -> None:
+  """Part (b), rank `rank` of 2 on the one card over gloo: the trajectory
+  run (GLOO_STEPS steps, the forced reset, GLOO_STEPS more), then the
+  learning run with the learner's largest distance from the ranks' mean.
+  Saves both to <out_dir>/rank_<rank>.pt."""
+  import os
+  import ble_tpu_torch  # noqa: F401
+  from ble_tpu_torch.env import env as env_lib
+  from ble_tpu_torch.parallel import distributed
+  rank = int(rank)
+  device = distributed.init_process_group(
+      torch.device(DEV, 0), rank=rank, world_size=2,
+      init_method=init_method, backend='gloo')
+  try:
+    params = env_lib.EnvParams(field_cache=True)
+    seen = []
+    field_fn = _recording(generative_field_fn(), seen)
+    config = _gloo_config(2 * GLOO_E, learning=False)
+    ts = distributed.init_distributed_train_state(0, config, params,
+                                                  field_fn, device)
+    ts, _ = distributed.build_distributed_step(config, params,
+                                               GLOO_STEPS)(ts)
+    lo, hi = distributed.shard_bounds(2 * GLOO_E, rank, 2)
+    ts.active = ts.active & ~_forced(2 * GLOO_E)[lo:hi]
+    ts, _ = distributed.build_distributed_reset(config, params,
+                                                field_fn)(ts)
+    ts, _ = distributed.build_distributed_step(config, params,
+                                               GLOO_STEPS)(ts)
+    result = {'snapshot': _gloo_snapshot(ts, seen)}
+
+    config = _gloo_config(2 * GLOO_E, learning=True)
+    ts = distributed.init_distributed_train_state(0, config, params,
+                                                  field_fn, device)
+    step = distributed.build_distributed_step(config, params,
+                                              GLOO_LEARN_STEPS)
+    ts, metrics = step(ts)
+    deviation = 0.0
+    for module in (ts.learner.network, ts.learner.target_network):
+      for p in module.parameters():
+        mean = p.detach().clone()
+        torch.distributed.all_reduce(mean)
+        deviation = max(deviation,
+                        float((p.detach() - mean / 2).abs().max()))
+    result['learning'] = {'deviation': deviation,
+                          'train_steps': ts.learner.train_steps,
+                          'collectives': step.allreduce.collectives,
+                          'loss': metrics['loss'].cpu()}
+    torch.save(result, os.path.join(out_dir, f'rank_{rank}.pt'))
+  finally:
+    torch.distributed.destroy_process_group()
+
+
+def worker_tp(out_path: str, init_method: str) -> None:
+  """Part (d): TP_STEPS steps of tensor_parallel.build_tp_train_step on a
+  (1, 1) mesh over NCCL, on tests/test_tensor_parallel.py's batch."""
+  import ble_tpu_torch  # noqa: F401
+  from ble_tpu_torch.agents import qrdqn
+  from ble_tpu_torch.parallel import distributed
+  from ble_tpu_torch.parallel import tensor_parallel
+  distributed.init_process_group(DEV, rank=0, world_size=1,
+                                 init_method=init_method)
+  try:
+    mesh = tensor_parallel.make_2d_mesh(1, 1)
+    config = qrdqn.QrDqnConfig(num_layers=4, hidden_units=64, num_atoms=11,
+                               learning_rate=1e-3)
+    init_fn, step_fn = tensor_parallel.build_tp_train_step(mesh, config, 32)
+    state = init_fn(0)
+    rng = np.random.RandomState(0)
+    batch = {
+        'obs': torch.tensor(rng.randn(16, 32), dtype=torch.float32),
+        'action': torch.tensor(rng.randint(0, 3, 16), dtype=torch.int32),
+        'n_step_reward': torch.tensor(rng.rand(16), dtype=torch.float32),
+        'bootstrap_discount': torch.zeros(16),
+        'next_obs': torch.tensor(rng.randn(16, 32), dtype=torch.float32),
+        'weight': torch.ones(16)}
+    losses = []
+    for _ in range(TP_STEPS):
+      state, metrics = step_fn(state, batch)
+      losses.append(float(metrics['loss']))
+    weight = state.network.layers[0].weight
+    with open(out_path, 'w') as f:
+      json.dump({'losses': losses, 'mesh': list(mesh.shape),
+                 'placements': str(weight.placements),
+                 'device': str(weight.device)}, f)
+  finally:
+    torch.distributed.destroy_process_group()
+
+
+WORKERS = {'train': worker_train, 'gloo': worker_gloo, 'tp': worker_tp}
+
+
+def _learner_errs(got: dict, want: dict, start: dict) -> dict:
+  """Phase train's card-vs-cpu readings for two state dicts of the same
+  network: params (max |got - want| over max |want|) and updates (|got -
+  want| over |want - start| in norm), the largest over the tensors; and
+  whether every tensor is equal in bits."""
+  errs = {'params': 0.0, 'updates': 0.0, 'same_bits': True}
+  for k, w in want.items():
+    g = got[k].to(w.device)
+    errs['params'] = max(errs['params'], float(
+        (g - w).abs().max() / w.abs().max()))
+    delta = (w.double() - start[k].to(w.device)).norm()
+    if delta > 0:
+      errs['updates'] = max(errs['updates'], float(
+          (g.double() - w.double()).norm() / delta))
+    errs['same_bits'] &= bool(torch.equal(g, w))
+  return errs
+
+
+def dist_part_a(phases, base: str, work: str) -> dict:
+  """Part (a): `distributed_train --n_devices 1` over E = TRAIN_E
+  generative envs at TrainConfig's defaults, one chunk of DIST_CHUNK env
+  steps with a checkpoint under `base` (worker_train); the CLI's JSON
+  line (B1 and B2 every env step, train_steps 256 x the steps that could
+  sample, one all-reduce a train step) and finite losses."""
+  import os
+  from ble_tpu_torch import config as config_lib
+  from ble_tpu_torch.train import learner as learner_lib
+  out_path = os.path.join(work, 'train.json')
+  argv = ['--n_devices', '1', '--num_env_steps', str(DIST_CHUNK),
+          '--chunk_steps', str(DIST_CHUNK), '--base_dir', base, '--seed',
+          '0']
+  for item in DIST_SETS:
+    argv += ['--set', item]
+  t = time.perf_counter()
+  out = _run_workers([['train', out_path,
+                       'timing' if 'timing' in phases else '-', *argv]])[0]
+  worker_s = time.perf_counter() - t
+  with open(out_path) as f:
+    res = json.load(f)
+  lines = [json.loads(line) for line in out.splitlines()
+           if line.startswith('{"rank"')]
+  check(len(lines) == 1, f'distributed CLI: {len(lines)} summary lines')
+  cli = lines[0]
+  config = config_lib.apply_overrides(learner_lib.TrainConfig(), DIST_SETS)
+  first = (config.qrdqn.min_replay_history // config.num_envs +
+           config.replay.n_step)
+  trained = max(DIST_CHUNK - first, 0)
+  check(cli['launches']['physics'] >= DIST_CHUNK and
+        cli['launches']['gp_window'] >= DIST_CHUNK,
+        f'distributed: B1 or B2 not launched every env step: {cli}')
+  check(cli['launches'] == {k: res['launches'][k] for k in cli['launches']},
+        'distributed: the CLI and the worker count other launches')
+  check(cli['env_steps'] == DIST_CHUNK and cli['train_steps'] ==
+        config.grad_steps_per_env_step() * trained,
+        f'distributed: train_steps {cli["train_steps"]}')
+  check(cli['allreduce_collectives'] == cli['train_steps'],
+        'distributed: not one all-reduce a train step')
+  losses = res['summary']['losses']
+  check(all(np.isfinite(losses)) and all(l > 0 for l in losses[first:]),
+        f'distributed: losses {losses}')
+  res.update(cli=cli, worker_s=worker_s)
+  return res
+
+
+def dist_reference(params, field_fn, base: str, cli: dict) -> dict:
+  """Part (a)'s learner (rank 0's checkpoint under `base`) against a
+  single-process run_episode_chunk from the same seed, in this process,
+  to phase train's card-vs-cpu limits; whether the bits are equal."""
+  from ble_tpu_torch import config as config_lib
+  from ble_tpu_torch.train import learner as learner_lib
+  from ble_tpu_torch.train import train_lib
+  config = config_lib.apply_overrides(learner_lib.TrainConfig(), DIST_SETS)
+  t = time.perf_counter()
+  ts = learner_lib.init_train_state(0, params, field_fn, config, DEV)
+  start = {k: v.detach().double().clone()
+           for k, v in ts.learner.network.state_dict().items()}
+  ts, _ = learner_lib.selective_reset(ts, params, field_fn, config)
+  ts, _ = learner_lib.run_episode_chunk(config, params, ts, DIST_CHUNK)
+  torch.cuda.synchronize()
+  reference_s = time.perf_counter() - t
+  got, iteration = train_lib.restore_latest_learner_params(base)
+  errs = _learner_errs(got, ts.learner.network.state_dict(), start)
+  log(f'distributed (a): the learner of world 1 against the single-process '
+      f'chunk: {json.dumps(errs)} (limits params {TRAIN_PARAM_RTOL}, '
+      f'updates {TRAIN_UPDATE_RTOL}); reference run {reference_s:.1f} s')
+  check(iteration == 1, f'distributed checkpoint iteration {iteration}')
+  check(errs['params'] <= TRAIN_PARAM_RTOL and
+        errs['updates'] <= TRAIN_UPDATE_RTOL,
+        f'distributed: world 1 departs from run_episode_chunk: {errs}')
+  check(ts.learner.train_steps == cli['train_steps'],
+        'distributed: train_steps differ from the single process')
+  return errs
+
+
+def dist_part_b(params, field_fn, work: str) -> dict:
+  """Part (b): two gloo ranks of GLOO_E envs on the one card against one
+  process of 2 GLOO_E envs on it: observations, pressure, replay rows,
+  counters and every reset's world seeds equal in bits across the forced
+  reset, and a seed's decoded field whatever its batch; then with
+  learning on every parameter within 1e-6 of the ranks' mean
+  (tests/test_training.py:555-556) and one all-reduce a train step."""
+  import os
+  from ble_tpu_torch.train import learner as learner_lib
+  ranks = [torch.load(os.path.join(work, f'rank_{r}.pt'), weights_only=False)
+           for r in range(2)]
+  seen = []
+  recorded = _recording(field_fn, seen)
+  config = _gloo_config(2 * GLOO_E, learning=False)
+  ts = learner_lib.init_train_state(0, params, recorded, config, DEV)
+  ts, _ = learner_lib.run_episode_chunk(config, params, ts, GLOO_STEPS)
+  ts.active = ts.active & ~_forced(2 * GLOO_E)
+  ts, _ = learner_lib.selective_reset(ts, params, recorded, config)
+  ts, _ = learner_lib.run_episode_chunk(config, params, ts, GLOO_STEPS)
+  want = _gloo_snapshot(ts, seen)
+  got = [r['snapshot'] for r in ranks]
+  pairs = {k: (torch.cat([got[0][k], got[1][k]]), want[k])
+           for k in ('obs', 'pressure')}
+  pairs.update({f'replay.{k}': (torch.cat([got[0]['replay'][k],
+                                           got[1]['replay'][k]]), v)
+                for k, v in want['replay'].items()})
+  same = {k: torch.equal(a, b) for k, (a, b) in pairs.items()}
+  # Where the bits differ: the largest difference and the envs it is in.
+  apart = {k: {'max_abs': float((a.double() - b.double()).abs().max()),
+               'envs': int((a != b).reshape(a.shape[0], -1).any(1).sum())}
+           for k, (a, b) in pairs.items() if not same[k]}
+  same['seeds'] = all(want['seeds'][i] == got[0]['seeds'][i] +
+                      got[1]['seeds'][i] for i in range(2))
+  same['counters'] = all(g['counters'] == want['counters'] for g in got)
+  # A seed's decoded field whatever the seeds decoded beside it
+  # (env.DECODE_BLOCK): 2 GLOO_E seeds at once against two calls.
+  seeds = list(range(2 * GLOO_E))
+  fields = field_fn(seeds, DEV)
+  for split in (GLOO_E, 2 * GLOO_E // 10 + 1):
+    same[f'decode {split} + {2 * GLOO_E - split}'] = torch.equal(
+        fields, torch.cat([field_fn(seeds[:split], DEV),
+                           field_fn(seeds[split:], DEV)]))
+  learning = [r['learning'] for r in ranks]
+  log('distributed (b): two gloo ranks against one process, equal in bits:',
+      json.dumps(same), '; where not:', json.dumps(apart), '; learning:',
+      json.dumps([{k: v for k, v in l.items() if k != 'loss'}
+                  for l in learning]))
+  check(all(same.values()), f'distributed (b): the ranks depart: {same}')
+  for l in learning:
+    check(l['train_steps'] > 0 and l['deviation'] <= 1e-6 and
+          l['collectives'] == l['train_steps'] and
+          bool(torch.isfinite(l['loss']).all()),
+          f'distributed (b): learner not replicated: {l}')
+  return {'same': same, 'deviation': max(l['deviation'] for l in learning)}
+
+
+def dist_part_c(params, field_fn, work: str) -> None:
+  """Part (c): eval_lib on the card, SHARD_SEEDS seeds for SHARD_STEPS
+  StationSeeker steps: the two slices of --num_shards 2, written and
+  merged by combine_shard_results, equal to the unsharded run seed for
+  seed (no reduction crosses the env axis)."""
+  import os
+  from ble_tpu_torch.train import eval_lib
+  eval_fn = eval_lib.build_eval_fn(params, field_fn, *policy(),
+                                   max_steps=SHARD_STEPS, device=DEV)
+  seeds = list(range(SHARD_SEEDS))
+  whole = [dataclasses.asdict(r) for r in eval_lib.evaluate(eval_fn, seeds)]
+  paths = []
+  for idx in range(2):
+    paths.append(os.path.join(work, f'shard_{idx}.json'))
+    eval_lib.write_results_json(eval_lib.evaluate(eval_fn, seeds[idx::2]),
+                                paths[-1])
+  combined = eval_lib.combine_shard_results(paths)
+  differ = [a['seed'] for a, b in zip(combined, whole) if a != b]
+  log(f'distributed (c): {SHARD_SEEDS} seeds x {SHARD_STEPS} steps, two '
+      f'shards combined against the unsharded run: seeds that differ '
+      f'{differ}')
+  check(len(combined) == len(whole) and not differ,
+        f'distributed (c): sharded eval differs at seeds {differ}')
+
+
+def dist_part_d(work: str) -> None:
+  """Part (d): the tensor-parallel demo at a (1, 1) mesh on NCCL (its
+  worker's output): TP_STEPS finite, falling losses."""
+  import os
+  with open(os.path.join(work, 'tp.json')) as f:
+    tp = json.load(f)
+  log('distributed (d): tensor-parallel demo', json.dumps(tp))
+  losses = tp['losses']
+  check(len(losses) == TP_STEPS and all(np.isfinite(losses)) and
+        losses[-1] < losses[0], f'distributed (d): losses {losses}')
+
+
+def phase_distributed(params, field_fn, phases, train_summary) -> dict:
+  """Parts (a) to (d) (DIST_CHUNK's note), each process group in worker
+  processes that end with their part. Part (a)'s worker runs alone, as it
+  is timed; then the eval CLI on its checkpoint runs beside the checks
+  that time nothing: the single-process reference, parts (b) and (d)
+  (their three workers at once) and (c). Prints world 1's env-steps/s,
+  gradient steps/s and the all-reduce's share of a train step beside
+  phase train's, and returns the rows' launches, errors and times."""
+  import os
+  import tempfile
+  t0 = time.perf_counter()
+  with tempfile.TemporaryDirectory() as work:
+    base = os.path.join(work, 'run')
+    a = dist_part_a(phases, base, work)
+    eval_dir = os.path.join(work, 'eval')
+    t_eval = time.perf_counter()
+    evaluation = [_start([sys.executable, '-m', 'ble_tpu_torch.train.eval',
+                          '--agent', 'quantile', '--checkpoint_dir', base,
+                          '--suite', 'micro_eval', '--output_dir',
+                          eval_dir])]
+    try:
+      a['learner_errs'] = dist_reference(params, field_fn, base, a['cli'])
+      t = time.perf_counter()
+      gloo = 'file://' + os.path.join(work, 'gloo_rendezvous')
+      _run_workers([['gloo', work, str(r), gloo] for r in range(2)] + [
+          ['tp', os.path.join(work, 'tp.json'),
+           'file://' + os.path.join(work, 'tp_rendezvous')]])
+      b = dist_part_b(params, field_fn, work)
+      dist_part_d(work)
+      b_d_s = time.perf_counter() - t
+      t = time.perf_counter()
+      dist_part_c(params, field_fn, work)
+      c_s = time.perf_counter() - t
+    except BaseException:
+      _stop(evaluation)
+      raise
+    _finish(evaluation)
+    eval_s = time.perf_counter() - t_eval
+    with open(os.path.join(eval_dir, 'quantile_micro_eval.json')) as f:
+      results = json.load(f)['results']
+    check(len(results) == 1 and results[0]['final_timestep'] > 0 and
+          0.0 <= results[0]['time_within_radius'] <= 1.0 and
+          np.isfinite(results[0]['cumulative_reward']),
+          f'distributed: eval of the checkpoint {results}')
+    log(f'distributed (a): eval CLI on the checkpoint, micro_eval, done '
+        f'{eval_s:.1f} s after its start: {json.dumps(results[0])}')
+  s, p = a['summary'], a['profile']
+  u = p['unprofiled']
+  report = {
+      'world1_env_steps_per_s': s['env_steps_per_s'],
+      'world1_grad_steps_per_s': s['grad_steps_per_s'],
+      'world1_ms_per_env_step': s['ms_per_env_step'],
+      'world1_learner_ms_per_env_step': s['learner_ms_per_env_step'],
+      'allreduce_host_share_of_train_step':
+          p['allreduce_host_share_of_train_step'],
+      'allreduce_device_share': p['allreduce_device_share'],
+      'nccl_kernels_in_profiled_step': p['nccl_kernels'],
+      'allreduce_unprofiled_ms': u['flat_ms'],
+      'allreduce_unprofiled_share_of_train_step':
+          u['flat_ms'] / u['train_step_ms'],
+      'per_tensor_allreduce_unprofiled_ms': u['per_tensor_ms'],
+      'profiled_device_ms': p['device_ms'],
+      'launches_per_train_step': p['launches_per_train_step'],
+      'learner_same_bits_as_single_process': a['learner_errs']['same_bits'],
+      'gloo_max_deviation': b['deviation'],
+      'seconds': {'a_worker': a['worker_s'], 'a_eval_beside_b_c_d': eval_s,
+                  'b_d': b_d_s, 'c': c_s,
+                  'phase': time.perf_counter() - t0}}
+  if train_summary is not None:
+    report['train_env_steps_per_s'] = train_summary['env_steps_per_s']
+    report['train_split_env_steps_per_s'] = (
+        train_summary['split_env_steps_per_s'])
+    report['train_split_grad_steps_per_s'] = (
+        train_summary['split_grad_steps_per_s'])
+    report['ratio_to_train'] = (s['env_steps_per_s'] /
+                                train_summary['env_steps_per_s'])
+    report['ratio_to_train_split'] = (
+        s['env_steps_per_s'] / train_summary['split_env_steps_per_s'])
+  log(f'distributed: {nvidia_smi_line()}:', json.dumps(report))
+  log('distributed: profile of the chunk\'s last env step:',
+      json.dumps(p))
+  return {'launches': {
+      'physics_distributed': a['cli']['launches']['physics'],
+      'gp_window_distributed': a['cli']['launches']['gp_window']},
+          'errs': a['errs'], 'timing': a['timing']}
 
 
 def time_b1(params, state) -> dict:
@@ -2319,6 +2979,10 @@ def phase_profile(params, field_fn, state0, obs0) -> None:
 
 
 def main(argv=None) -> int:
+  argv = sys.argv[1:] if argv is None else argv
+  if argv[:1] == ['--worker']:
+    WORKERS[argv[1]](*argv[2:])
+    return 0
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--phases', default=','.join(DEFAULT_PHASES),
                       help='comma-separated subset of: ' +
@@ -2335,19 +2999,25 @@ def main(argv=None) -> int:
   import ble_tpu_torch  # noqa: F401  (sets the float32 precision policy)
   from ble_tpu_torch.env import env as env_lib
 
+  t_start = time.perf_counter()
+
+  def mark(phase: str) -> None:
+    log(f'phase {phase} done, {time.perf_counter() - t_start:.1f} s in')
+
   smi = nvidia_smi_line()
   kind = torch.cuda.get_device_name(0)
   log(f'device: {kind}; nvidia-smi: {smi}; torch {torch.__version__}, '
       f'CUDA {torch.version.cuda}')
   if 'build' in phases:
     phase_build()
+    mark('build')
   if 'tile' in phases:
     phase_tile()
 
   params = env_lib.EnvParams(field_cache=True)
   field_fn = state0 = obs0 = gp_state = None
   if phases & {'kernels', 'pair', 'main', 'window', 'train', 'agents',
-                'timing', 'numerics', 'profile', 'splits'}:
+                'distributed', 'timing', 'numerics', 'profile', 'splits'}:
     field_fn = generative_field_fn()
   if phases & {'kernels', 'main', 'window', 'timing', 'numerics', 'profile',
                 'splits'}:
@@ -2366,6 +3036,7 @@ def main(argv=None) -> int:
     errs['gp_window'] = {'max_abs_err': max(e1['max_abs_err'],
                                             e8['max_abs_err'])}
     errs.update(check_b3_b4_b5(gp_state))
+    mark('kernels')
   if 'numerics' in phases:
     phase_numerics(params, state0)
   if 'splits' in phases:
@@ -2374,11 +3045,13 @@ def main(argv=None) -> int:
     phase_calibrate()
   if 'reference' in phases:
     phase_reference()
+    mark('reference')
   # Launches of each kernel on each path that carries it, each path driven
   # with every count set to 0 just before it and read just after: B1, B3
   # and B5 on the gym path (E = 1), B4 and B5 on the pair path, B1 and B2
   # on the main path (E = 4096), on the window path (E = 4096, B2 at K = 8)
-  # and on the train and agents paths (E = 1024).
+  # and on the train, agents and distributed paths (E = 1024; the
+  # distributed path's counts come from its worker process).
   launches = {}
   gym_state = None
   if 'gym' in phases:
@@ -2386,12 +3059,15 @@ def main(argv=None) -> int:
     launches.update(gym_launches)
     if 'kernels' in phases:
       errs['physics_gym'] = check_b1(params, gym_state)
+    mark('gym')
   if 'pair' in phases:
     launches.update(phase_pair(field_fn))
+    mark('pair')
   main_out = None
   if 'main' in phases:
     main_out = phase_main(params, field_fn, state0, obs0)
     launches.update(main_out['launches'])
+    mark('main')
   window_out = None
   if 'window' in phases:
     window_out = phase_window(params, state0)
@@ -2400,13 +3076,16 @@ def main(argv=None) -> int:
       errs['physics_window'] = check_b1(params, window_out['state'])
       errs['gp_window_window'] = check_b2(window_out['b2'][0], WINDOW_K,
                                           window_out['b2'][1])
-  train_state = train_b2 = None
+    mark('window')
+  train_state = train_b2 = train_summary = None
   if 'train' in phases:
-    train_launches, train_state, train_b2 = phase_train(field_fn)
+    train_launches, train_state, train_b2, train_summary = phase_train(
+        field_fn)
     launches.update(train_launches)
     if 'kernels' in phases:
       errs['physics_train'] = check_b1(params, train_state.env_state)
       errs['gp_window_train'] = check_b2(train_b2[0], 1, train_b2[1])
+    mark('train')
   agents_out = None
   if 'agents' in phases:
     agents_out = phase_agents(field_fn)
@@ -2415,10 +3094,20 @@ def main(argv=None) -> int:
       errs['physics_agents'] = check_b1(params, agents_out['state'])
       errs['gp_window_agents'] = check_b2(agents_out['b2'][0], 1,
                                           agents_out['b2'][1])
+    mark('agents')
+  dist_out = None
+  if 'distributed' in phases:
+    dist_out = phase_distributed(params, field_fn, phases, train_summary)
+    launches.update(dist_out['launches'])
+    errs.update(dist_out['errs'])
+    mark('distributed')
   timing = {}
   if 'timing' in phases:
     timing = phase_timing(params, state0, gp_state, gym_state, train_state,
                           train_b2, window_out, agents_out)
+    if dist_out is not None:
+      timing.update(dist_out['timing'])
+    mark('timing')
   if 'profile' in phases:
     phase_profile(params, field_fn, state0, obs0)
 
@@ -2439,6 +3128,8 @@ def main(argv=None) -> int:
       'gp_window_train': b2 + (f'train, E={TRAIN_E}',),
       'physics_agents': b1 + (f'agents, E={TRAIN_E}',),
       'gp_window_agents': b2 + (f'agents, E={TRAIN_E}',),
+      'physics_distributed': b1 + (f'distributed world 1, E={TRAIN_E}',),
+      'gp_window_distributed': b2 + (f'distributed world 1, E={TRAIN_E}',),
       'gp_observe_b3': ('ble_tpu_torch/csrc/gp_observe.cu',
                         'ble_tpu/ops/pallas_gp_observe.py:265', 'gym, E=1'),
       'gp_observe_b4': ('ble_tpu_torch/csrc/gp_observe.cu',

@@ -246,7 +246,7 @@ def test_gym_seeding_is_reproducible(gym):
 @pytest.mark.parametrize('name', ['station_seeker', 'random', 'random_walk'])
 def test_registered_agents_drive_the_gym_env(gym, name):
   agent = base.create_agent(name, num_actions=3, observation_shape=(1099,),
-                            seed=0)
+                            seed=0, device='cpu')
   obs, _ = gym.reset(seed=5)
   action = agent.begin_episode(obs)
   for _ in range(2):

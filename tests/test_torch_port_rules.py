@@ -150,12 +150,13 @@ def test_eval_cli_raises_without_a_card_for_each_agent(no_cuda, agent,
 
 
 def test_agents_and_perciatelli_loader_raise_without_a_card(no_cuda):
-  """load_perciatelli44 and the agents with networks default to the card:
-  without one they raise before looking for a blob or drawing weights."""
+  """load_perciatelli44 and every registered agent default to the card:
+  without one they raise before looking for a blob or drawing weights,
+  the host-side agents (StationSeeker, random, random walk) too."""
   with pytest.raises(RuntimeError, match='CUDA'):
     loader.load_perciatelli44()
   for name in ('perciatelli44', 'quantile', 'finetune_perciatelli', 'dqn',
-               'mlp'):
+               'mlp', 'station_seeker', 'random', 'random_walk'):
     with pytest.raises(RuntimeError, match='CUDA'):
       base.create_agent(name, num_actions=3, observation_shape=(1099,))
 

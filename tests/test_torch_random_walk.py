@@ -107,13 +107,14 @@ def test_random_agents_act_like_jax():
   obs = _obs(rng, [9000.0])[0]
   actions = {}
   for name, pkg in (('port', base), ('jax', jax_base)):
+    kw = {'device': 'cpu'} if pkg is base else {}
     agent = pkg.create_agent('random', num_actions=3,
-                             observation_shape=(OBS_DIM,), seed=0)
+                             observation_shape=(OBS_DIM,), seed=0, **kw)
     seen = [agent.begin_episode(obs)] + [agent.step(0.0, obs)
                                          for _ in range(99)]
     actions[name] = set(seen)
     walker = pkg.create_agent('random_walk', num_actions=3,
-                              observation_shape=(OBS_DIM,), seed=0)
+                              observation_shape=(OBS_DIM,), seed=0, **kw)
     assert walker.begin_episode(obs) in (0, 1, 2)
     for _ in range(3):
       assert walker.step(0.0, obs) in (0, 1, 2)

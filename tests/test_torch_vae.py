@@ -71,8 +71,9 @@ def test_loader_raises_on_unreadable_blob(tmp_path, monkeypatch):
 
 def test_loader_fallback_is_deterministic(monkeypatch):
   """No blob: the seed-0 torch init, the same across calls, decoding
-  finite grids; a seed's field comes from its own generator, whatever its
-  batch (up to the rounding of a batched matrix product)."""
+  finite grids; a seed's field comes from its own generator and equals,
+  to the bit, its field decoded in any batch (decoder calls of
+  env.DECODE_BLOCK latents: here across a block's edge)."""
   monkeypatch.delenv('BLE_TPU_MODELS', raising=False)
   assert not os.path.exists(os.path.join(os.path.dirname(loader.__file__),
                                          loader._OFFLINESKIES_FILENAME))
@@ -88,8 +89,13 @@ def test_loader_fallback_is_deterministic(monkeypatch):
   field_fn = env_lib.make_field_fn('generative', a)
   both = field_fn([5, 3], 'cpu')
   alone = field_fn([3], 'cpu')
-  np.testing.assert_allclose(both[1].numpy(), alone[0].numpy(), atol=1e-6)
+  assert torch.equal(both[1], alone[0])
   assert not torch.equal(both[0], both[1])
+  many = field_fn(list(range(env_lib.DECODE_BLOCK + 4)), 'cpu')
+  assert many.shape[0] == env_lib.DECODE_BLOCK + 4
+  last = env_lib.DECODE_BLOCK + 3
+  assert torch.equal(many[last], field_fn([last], 'cpu')[0])
+  assert torch.equal(many[3], alone[0])
 
 
 @pytest.mark.parametrize('agent', ['station_seeker', 'random', 'random_walk'])
