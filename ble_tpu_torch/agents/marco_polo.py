@@ -37,7 +37,7 @@ def begin_episode(n: int, generator: torch.Generator,
       exploratory_episode=exploratory <= probability,
       exploratory_phase=torch.zeros((n,), dtype=torch.bool, device=dev),
       phase_steps=torch.zeros((n,), dtype=torch.int32, device=dev),
-      rw=random_walk.init(n, generator))
+      rw=random_walk.init_from_generator(n, generator))
 
 
 def step(state: MarcoPoloState, observation, rl_action,
@@ -56,7 +56,8 @@ def step(state: MarcoPoloState, observation, rl_action,
 
   # The random-walk agent only advances when queried
   # (marco_polo_exploration.py:88-93).
-  rw_next, rw_action = random_walk.step(state.rw, observation, generator)
+  rw_next, rw_action = random_walk.step_from_generator(state.rw, observation,
+                                                       generator)
   rw_state = random_walk.RandomWalkState(**{
       f.name: torch.where(exploratory_phase, getattr(rw_next, f.name),
                           getattr(state.rw, f.name))

@@ -166,6 +166,13 @@ def online_invalidate(state: OnlineState, mask: torch.Tensor) -> OnlineState:
   return dataclasses.replace(state, p_valid=state.p_valid & ~mask)
 
 
+def _generator(keys) -> torch.Generator:
+  """A CPU generator seeded with the 64 bits of an episode's key (1, 2):
+  the network's init stays on torch.Generator, as training's draws do."""
+  return torch.Generator().manual_seed(
+      (int(keys[0, 0]) << 32) | int(keys[0, 1]))
+
+
 @base.register('mlp')
 class MLPAgent(base.FunctionalAgent):
   """The online SARSA agent of one env, on `device` (default: cuda)."""
@@ -176,8 +183,8 @@ class MLPAgent(base.FunctionalAgent):
     obs_dim = observation_shape[0]
     super().__init__(
         num_actions, observation_shape,
-        init_fn=lambda n, generator: init(generator, obs_dim, device),
-        policy_fn=lambda state, obs, generator: step(state, 0.0, obs),
+        init_fn=lambda keys, device: init(_generator(keys), obs_dim, device),
+        policy_fn=lambda state, obs, draws: step(state, 0.0, obs),
         seed=seed, device=device)
 
   def step(self, reward: float, observation) -> int:

@@ -4,8 +4,10 @@ reference agents/networks.py:27-98).
 Batch-first modules mapping (..., obs_dim) to per-action outputs. The dense
 layers are plain nn.Linear and the LSTM is nn.LSTM: the JAX package
 computes them with flax nn.Dense and OptimizedLSTMCell, outside any Pallas
-kernel. Parameters are drawn from an explicit torch.Generator with the reference's distributions (torch cannot reproduce
-jax.random, so the values are not flax's); a flax tree crosses through
+kernel. Parameters are drawn from an explicit torch.Generator with the
+reference's distributions, so the values are not flax's: training's draws
+stay on torch.Generator (learning is held by curves, not bits; worlds and
+eval policies draw from utils/prng.py). A flax tree crosses through
 bridge.quantile_params_from_flax, mlp_params_from_flax and
 lstm_quantile_params_from_flax.
 """

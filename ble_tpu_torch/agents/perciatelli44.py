@@ -45,6 +45,6 @@ class Perciatelli44(base.FunctionalAgent):
     policy = make_policy(network)
     super().__init__(
         num_actions, observation_shape,
-        init_fn=lambda n, generator: (),
-        policy_fn=lambda state, obs, generator: (state, policy(obs)),
+        init_fn=lambda keys, device: (),
+        policy_fn=lambda state, obs, draws: (state, policy(obs)),
         seed=seed, device=device)

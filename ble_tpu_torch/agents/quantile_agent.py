@@ -34,8 +34,8 @@ class _GreedyAgent(base.FunctionalAgent):
                device):
     self.network = network
     super().__init__(
-        num_actions, observation_shape, init_fn=lambda n, generator: (),
-        policy_fn=lambda state, obs, generator: (state, select(network, obs)),
+        num_actions, observation_shape, init_fn=lambda keys, device: (),
+        policy_fn=lambda state, obs, draws: (state, select(network, obs)),
         seed=seed, device=device)
 
 

@@ -74,7 +74,7 @@ class StationSeekerAgent(base.FunctionalAgent):
 
   def __init__(self, num_actions, observation_shape, seed=None, device=None):
     super().__init__(num_actions, observation_shape,
-                     init_fn=lambda n, generator: (),
-                     policy_fn=lambda state, obs, generator: (
+                     init_fn=lambda keys, device: (),
+                     policy_fn=lambda state, obs, draws: (
                          state, pick_action(obs)),
                      seed=seed, device=device)

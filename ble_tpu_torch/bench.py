@@ -103,8 +103,9 @@ def config_from_env(environ) -> BenchConfig:
 
 
 def reset_envs(params, config: BenchConfig, note=lambda msg: None):
-  """Envs 0..num_envs-1 reset in chunks of reset_chunk (a reset's decode
-  and sunrise search hold more memory than a step does)."""
+  """Envs 0..num_envs-1 (the JAX package's worlds of those seeds) reset in
+  chunks of reset_chunk (a reset's decode and sunrise search hold more
+  memory than a step does)."""
   if config.wind == 'static':
     fn = env_lib.make_field_fn('static')
   else:

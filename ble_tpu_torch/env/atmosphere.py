@@ -12,6 +12,7 @@ import torch
 
 from ble_tpu_torch.ops import pmath
 from ble_tpu_torch.utils import constants
+from ble_tpu_torch.utils import prng
 
 HEIGHT_TRANSITIONS = (
     -610.0, 17000.0, 21000.0, 32000.0, 47000.0, 51000.0, 71000.0, 85000.0)
@@ -31,9 +32,10 @@ class AtmosphereParams:
   pressure_transitions: torch.Tensor  # (..., 8)
 
 
-def reset(generator: torch.Generator, n: int = 1) -> AtmosphereParams:
-  """Samples n atmospheres on the CPU (standard_atmosphere.py:76-87)."""
-  return make(torch.rand((n,), generator=generator))
+def reset(keys) -> AtmosphereParams:
+  """One atmosphere a key of keys (E, 2), on the CPU
+  (ble_tpu/env/atmosphere.py:41-44; standard_atmosphere.py:76-87)."""
+  return make(prng.uniform(keys))
 
 
 def make(alpha) -> AtmosphereParams:

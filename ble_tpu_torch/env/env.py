@@ -36,6 +36,7 @@ from ble_tpu_torch.generative import vae
 from ble_tpu_torch.ops import gp_window
 from ble_tpu_torch.ops import physics
 from ble_tpu_torch.utils import constants
+from ble_tpu_torch.utils import prng
 from ble_tpu_torch.utils import sampling
 from ble_tpu_torch.utils import transforms
 
@@ -44,9 +45,6 @@ OBSERVATION_DIM = features_lib.NUM_FEATURES
 # Agent steps between re-centres of the field slab (exact below ~34.7 m/s);
 # divides wind_gp.REFRESH_PERIOD, so every GP chunk holds whole slab chunks.
 FIELD_CACHE_EVERY = 8
-# A seed's forecast latent comes from a generator seeded with seed + this,
-# a stream apart from its initial conditions' (seeded with the seed).
-FORECAST_SEED_OFFSET = 1 << 32
 
 
 @dataclasses.dataclass
@@ -147,49 +145,83 @@ def _observe_and_features(params: EnvParams, state: EnvState, col, noise_u,
   return state, obs
 
 
-def reset_from_field(params: EnvParams, field, seeds, device=None):
-  """Fresh episodes for `seeds`, each world drawn from its own
-  torch.Generator seeded with the seed (so a seed's world does not depend
-  on the batch it is in).
+def seed_keys(seeds) -> torch.Tensor:
+  """The reset keys (E, 2) of integer seeds: split(PRNGKey(seed))[1], the
+  JAX package's eval_lib.seed_to_key (the reference's env.seed then
+  reset, balloon_env.py:253,213), which is also the gym env's first reset
+  key. 64-bit seeds keep both halves."""
+  return prng.split(prng.keys(seeds))[:, 1]
+
+
+def forecast_keys(keys) -> torch.Tensor:
+  """The forecast-grid keys (E, 2) of reset keys: split(split(key, 7)[6])[1]
+  (ble_tpu/env/env.py:155-156)."""
+  return prng.split(prng.split(keys, 7)[:, 6])[:, 1]
+
+
+def reset_from_keys(params: EnvParams, field, keys, device=None):
+  """Fresh episodes from reset keys (E, 2), each env's initial conditions
+  drawn from its key as ble_tpu/env/env.py:reset_from_field draws them
+  (its 7-way split), on the host, then moved to `device` once: a key gives
+  the same world as in the JAX package, and the same bits on the card and
+  on the CPU.
 
   Args:
     params: EnvParams.
     field: (21, 21, 10, 9, 2) forecast grid shared by every env, or
       (E, 21, 21, 10, 9, 2) per-env grids.
-    seeds: sequence of E ints.
+    keys: (E, 2) int64 keys (utils/prng.py).
     device: torch device (default: cuda).
 
   Returns:
     (EnvState, observation (E, 1099)).
   """
   device = resolve_device(device)
-  ic = sampling.sample_initial_conditions(seeds)
+  ic = sampling.sample_initial_conditions(keys)
+  atmosphere = tree_map(lambda x: x.to(device),
+                        atmosphere_lib.make(ic['atmosphere_alpha']))
   ic = {k: v.to(device) for k, v in ic.items()}
-  n = len(seeds)
-  atmosphere = atmosphere_lib.make(ic['atmosphere_alpha'])
+  return init_state(params, atmosphere, ic['time_s'], ic['x_m'], ic['y_m'],
+                    ic['center_lat_rad'], ic['center_lng_rad'],
+                    ic['pressure_pa'], ic['upwelling_ir'],
+                    make_wind(params, field, ic['noise_seeds'],
+                              ic['noise_offsets'], ic['x_m'], ic['y_m']))
+
+
+def make_wind(params: EnvParams, field, noise_seeds, noise_offsets, x_m, y_m,
+              noise_perms=None) -> wind_field_lib.WindFieldState:
+  """The WindFieldState of fresh episodes: the grid(s) in the configured
+  dtype, one per env, on the noise tensors' device, with the slab cache
+  centred on (x_m, y_m) when it is on."""
+  n = noise_seeds.shape[0]
   dtype = torch.float32 if params.wind_field_f32 else \
       wind_field_lib.FIELD_DTYPE
-  field = torch.as_tensor(field, device=device).to(dtype)
+  field = torch.as_tensor(field, device=noise_seeds.device).to(dtype)
   if field.ndim == 5:
     field = field.expand((n,) + field.shape).contiguous()
-  wind = wind_field_lib.WindFieldState(field=field,
-                                       noise_seeds=ic['noise_seeds'],
-                                       noise_offsets=ic['noise_offsets'])
-  pressure = sampling.sample_pressure_from_unit(ic['pressure_unit'],
-                                                atmosphere)
+  wind = wind_field_lib.WindFieldState(field=field, noise_seeds=noise_seeds,
+                                       noise_offsets=noise_offsets,
+                                       noise_perms=noise_perms)
   if params.field_cache:
-    wind = wind_field_lib.refresh_slab(wind, ic['x_m'], ic['y_m'])
-  return init_state(params, atmosphere, ic['time_s'], ic['x_m'], ic['y_m'],
-                    ic['center_lat_rad'], ic['center_lng_rad'], pressure,
-                    ic['upwelling_ir'], wind)
+    wind = wind_field_lib.refresh_slab(wind, x_m, y_m)
+  return wind
+
+
+def reset_keys(params: EnvParams, keys, field_fn, device=None):
+  """Fresh episodes from reset keys (E, 2) (ble_tpu/env/env.py:142-158;
+  reference balloon_arena.py:161-182): each env's forecast grid from
+  field_fn(forecast_keys(keys), device) (see make_field_fn), then
+  reset_from_keys. Returns (EnvState, observation (E, 1099))."""
+  device = resolve_device(device)
+  return reset_from_keys(params, field_fn(forecast_keys(keys), device), keys,
+                         device)
 
 
 def reset(params: EnvParams, seeds, field_fn, device=None):
-  """Fresh episodes for `seeds` (reference balloon_arena.py:161-182): each
-  seed's forecast grid from field_fn(seeds, device) (see make_field_fn),
-  then reset_from_field. Returns (EnvState, observation (E, 1099))."""
-  device = resolve_device(device)
-  return reset_from_field(params, field_fn(seeds, device), seeds, device)
+  """Fresh episodes for integer `seeds`: reset_keys on seed_keys(seeds), so
+  seed s gives the world of the JAX package's env.reset(seed_to_key(s)).
+  Returns (EnvState, observation (E, 1099))."""
+  return reset_keys(params, seed_keys(seeds), field_fn, device)
 
 
 # Latents a decoder call. cuBLAS picks a GEMM by its row count, and two
@@ -201,27 +233,26 @@ DECODE_BLOCK = 16
 
 
 def make_field_fn(kind: str = 'generative', decoder=None):
-  """A field_fn(seeds, device) for `reset`.
+  """A field_fn(forecast keys (E, 2), device) for `reset`.
 
-  kinds: 'generative' decodes one grid per seed with `decoder`
-  (generative/vae.Decoder), from a latent drawn from that seed's own
-  generator, in decoder calls of DECODE_BLOCK latents each (the last one
-  padded), so a seed's world does not depend on its batch, to the bit:
+  kinds: 'generative' decodes one grid per env with `decoder`
+  (generative/vae.Decoder) from the latent normal(key, (64,)) of its
+  forecast key (ble_tpu/generative/vae.py:119-122), drawn on the host, in
+  decoder calls of DECODE_BLOCK latents each (the last one padded), so a
+  key's grid does not depend on its batch, to the bit:
   (E, 21, 21, 10, 9, 2). 'static' is the 4-direction test field
   (reference wind_field.py:149-184), one grid shared by every env.
   """
   if kind == 'static':
-    return lambda seeds, device: wind_field_lib.simple_static_field(device)
+    return lambda keys, device: wind_field_lib.simple_static_field(device)
   if kind != 'generative':
     raise ValueError(f'unknown wind field kind: {kind}')
   if decoder is None:
     raise ValueError('the generative field needs a decoder')
 
   @torch.no_grad()
-  def field_fn(seeds, device):
-    z = torch.stack([vae.sample_latent(torch.Generator().manual_seed(
-        int(s) + FORECAST_SEED_OFFSET)) for s in seeds])
-    z = z.to(next(decoder.parameters()).device)
+  def field_fn(keys, device):
+    z = vae.sample_latent(keys).to(next(decoder.parameters()).device)
     n = z.shape[0]
     z = torch.cat([z, z.new_zeros(((-n) % DECODE_BLOCK, z.shape[1]))])
     return torch.cat([decoder(c).to(device)

@@ -17,6 +17,7 @@ import torch
 from ble_tpu_torch import resolve_device
 from ble_tpu_torch.env import balloon as balloon_lib
 from ble_tpu_torch.env import env as env_lib
+from ble_tpu_torch.utils import prng
 
 try:
   import gymnasium as gym
@@ -55,18 +56,20 @@ class BalloonEnv(gym.Env if _GYM else object):
     self.reset()
 
   def seed(self, seed: int) -> None:
-    self._generator = torch.Generator().manual_seed(int(seed))
+    """The env's key is key(seed) (ble_tpu/env/gym_env.py:61-62)."""
+    self._rng = prng.key(seed)
 
   def reset(self, *, seed: Optional[int] = None, options=None):
-    """Gymnasium API: (observation, info). Each episode's world comes
-    from the next seed that the env's generator draws."""
+    """Gymnasium API: (observation, info). Each episode's world comes from
+    the next arena key, self._rng, arena = split(self._rng)
+    (ble_tpu/env/gym_env.py:64-75; reference balloon_env.py:213), so
+    BalloonEnv(seed=s) resets through the JAX package's worlds."""
     del options
     if seed is not None:
       self.seed(seed)
-    episode_seed = int(torch.randint(0, 2**31 - 1, (1,),
-                                     generator=self._generator))
-    self._state, obs = env_lib.reset(self._params, [episode_seed],
-                                     self._field_fn, self._device)
+    self._rng, arena = prng.split(self._rng)
+    self._state, obs = env_lib.reset_keys(self._params, arena[None],
+                                          self._field_fn, self._device)
     return obs[0].cpu().numpy(), {}
 
   def step(self, action: int

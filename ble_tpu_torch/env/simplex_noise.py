@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from ble_tpu_torch.env import opensimplex4d
+
 _F4 = (math.sqrt(5.0) - 1.0) / 4.0
 _G4 = (5.0 - math.sqrt(5.0)) / 20.0
 
@@ -129,6 +131,40 @@ def uv_noise(x_km, y_km, pressure_pa, time_hours, seeds, offsets):
   p = coords[:, None, None, :] / sp + offsets  # (E, 2, 5, 4)
   noise = NOISE_MAGNITUDE * simplex4d(p, seeds)  # (E, 2, 5)
   w = torch.tensor(_UV_WEIGHTS, dtype=torch.float32, device=dev)  # (2, 5)
+  total_w = w.sum(dim=1)
+  total_w2 = (w * w).sum(dim=1)
+  blend = (noise * w).sum(dim=-1)  # (E, 2)
+  blend = blend * (torch.sqrt(total_w / total_w2) / total_w)
+  return blend[:, 0], blend[:, 1]
+
+
+# The reference's calibrated raw variance of true OpenSimplex noise
+# (simplex_wind_noise.py:69-76), which the parity mode's noise uses.
+OPENSIMPLEX_VARIANCE = 0.0569
+
+
+def uv_noise_exact(x_km, y_km, pressure_pa, time_hours, perms, offsets):
+  """`uv_noise` with OpenSimplex 4-D noise, the parity mode
+  (ble_tpu/env/simplex_noise.py:178-223): each (component, harmonic)
+  lattice is the reference's seeded permutation table instead of the
+  stateless hash.
+
+  Args:
+    x_km, y_km, pressure_pa, time_hours: (E,) query coordinates.
+    perms: (E, 2, 5, 256) int32 tables from opensimplex4d.perm_from_seed.
+    offsets: (E, 2, 5, 4) float32 grid translations.
+
+  Returns:
+    (u_noise, v_noise), each (E,).
+  """
+  dev = x_km.device
+  magnitude = math.sqrt(TARGET_BLEND_VARIANCE / OPENSIMPLEX_VARIANCE)
+  coords = torch.stack([x_km, y_km, pressure_pa, time_hours], dim=-1)
+  sp = torch.tensor(_UV_SPACINGS, dtype=torch.float32, device=dev)
+  p = coords[:, None, None, :] / sp + offsets  # (E, 2, 5, 4)
+  noise = magnitude * opensimplex4d.noise4d(
+      perms, p[..., 0], p[..., 1], p[..., 2], p[..., 3])  # (E, 2, 5)
+  w = torch.tensor(_UV_WEIGHTS, dtype=torch.float32, device=dev)
   total_w = w.sum(dim=1)
   total_w2 = (w * w).sum(dim=1)
   blend = (noise * w).sum(dim=-1)  # (E, 2)

@@ -11,9 +11,12 @@ accumulates in float32, as the JAX package's contraction does.
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ble_tpu_torch.env import opensimplex4d
 from ble_tpu_torch.env import simplex_noise
+from ble_tpu_torch.utils import prng
 
 LATLNG_SLICES = 21
 PRESSURE_SLICES = 10
@@ -40,19 +43,45 @@ class WindFieldState:
   field: torch.Tensor  # (E, 21, 21, 10, 9, 2) FIELD_DTYPE, [u, v] m/s.
   noise_seeds: torch.Tensor  # (E, 2, 5) int32.
   noise_offsets: torch.Tensor  # (E, 2, 5, 4) float32 in [-1, 1].
+  # Parity mode (None on the fast path): (E, 2, 5, 256) int32 OpenSimplex
+  # permutation tables; when set, get_noise evaluates OpenSimplex 4-D
+  # noise instead of the hash-lattice noise.
+  noise_perms: Optional[torch.Tensor] = None
   # Windowed slab cache (None = read the full grid each query).
   slab: Optional[torch.Tensor] = None  # (E, SLAB_W, SLAB_W, 10, 9, 2).
   slab_x0: Optional[torch.Tensor] = None  # (E,) int32 window base corner.
   slab_y0: Optional[torch.Tensor] = None
 
 
-def reset_noise(generator: torch.Generator, n: int = 1):
-  """Noise seeds (n, 2, 5) and offsets (n, 2, 5, 4) on the CPU
-  (reference simplex_wind_noise.py:98-114)."""
-  seeds = torch.randint(0, 2**31 - 1, (n, 2, 5), generator=generator,
-                        dtype=torch.int32)
-  offsets = torch.rand((n, 2, 5, 4), generator=generator) * 2.0 - 1.0
+def reset_noise(keys):
+  """Noise seeds (E, 2, 5) int32 and offsets (E, 2, 5, 4) from noise keys
+  (E, 2), on the CPU (ble_tpu/env/wind_field.py:83-88; reference
+  simplex_wind_noise.py:98-114)."""
+  ks = prng.split(keys)
+  seeds = prng.randint(ks[:, 0], (2, 5), 0, 2**31 - 1)
+  offsets = prng.uniform(ks[:, 1], (2, 5, 4)) * 2.0 - 1.0
   return seeds, offsets
+
+
+def reset_noise_exact(keys):
+  """The parity mode's noise reset from noise keys (E, 2), on the CPU
+  (ble_tpu/env/wind_field.py:91-121): the reference's draws in its order
+  (wind_field.py:195-207 reset_wind_noise, then per component and
+  harmonic a seed `choice` and a grid translation `uniform` from the SAME
+  harmonic key, simplex_wind_noise.py:98-114), and the OpenSimplex
+  permutation table of each seed, built on the host.
+
+  Returns:
+    (seeds (E, 2, 5) int32, offsets (E, 2, 5, 4) float32,
+     perms (E, 2, 5, 256) int32).
+  """
+  harmonic = prng.split(prng.split(keys, 2), 5)  # (E, 2, 5, 2)
+  seeds = prng.choice(harmonic, 1634753849)
+  offsets = prng.uniform(harmonic, (4,)) * 2.0 - 1.0
+  perms = torch.from_numpy(np.stack([
+      opensimplex4d.cached_perm(s) for s in seeds.flatten().tolist()
+  ]).reshape(seeds.shape + (256,)))
+  return seeds, offsets, perms
 
 
 def _boomerang_hours(elapsed_s):
@@ -183,10 +212,16 @@ def get_forecast(state: WindFieldState, x_m, y_m, pressure_pa, elapsed_s):
 
 
 def get_noise(state: WindFieldState, x_m, y_m, pressure_pa, elapsed_s):
-  """Simplex wind noise (u, v) [m/s] (reference wind_field.py:188-219)."""
-  return simplex_noise.uv_noise(x_m / 1000.0, y_m / 1000.0, pressure_pa,
-                                elapsed_s.to(torch.float32) / 3600.0,
-                                state.noise_seeds, state.noise_offsets)
+  """Simplex wind noise (u, v) [m/s] (reference wind_field.py:188-219):
+  OpenSimplex noise in parity mode (noise_perms set), else the hash
+  noise. Every step route looks the noise up here."""
+  coords = (x_m / 1000.0, y_m / 1000.0, pressure_pa,
+            elapsed_s.to(torch.float32) / 3600.0)
+  if state.noise_perms is not None:
+    return simplex_noise.uv_noise_exact(*coords, state.noise_perms,
+                                        state.noise_offsets)
+  return simplex_noise.uv_noise(*coords, state.noise_seeds,
+                                state.noise_offsets)
 
 
 def get_ground_truth(state: WindFieldState, x_m, y_m, pressure_pa, elapsed_s):

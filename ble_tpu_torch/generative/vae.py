@@ -9,13 +9,14 @@ them outside any Pallas kernel. Their parameters cross from the JAX
 package's flax tree through bridge.decoder_params_from_flax.
 """
 
-import math
+import hashlib
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ble_tpu_torch.env import wind_field
+from ble_tpu_torch.utils import prng
 
 NUM_LATENTS = 64
 _HIDDEN = 1000
@@ -57,38 +58,45 @@ class Decoder(nn.Module):
     return torch.stack([u, v], dim=-1)
 
 
-def init_decoder_params(generator: torch.Generator) -> dict:
-  """A deterministic untrained decoder's state dict, drawn from
-  `generator` on the CPU with flax's Dense initialisers: kernels
-  lecun_normal (a normal of variance 1/fan_in truncated at 2 standard
-  deviations), biases zero. torch cannot reproduce jax.random, so these are
-  not the values of the JAX package's init_decoder_params(PRNGKey(0))."""
+def _flax_param_key(key, module_name: str):
+  """The rng flax hands the first parameter of child module `module_name`
+  of a root scope initialised with `key`: the key with the first 4 bytes
+  (big-endian) of the SHA-1 of the path (module name, then the module's
+  rng counter 1) folded in (flax core/scope.py:_fold_in_static and
+  Scope.make_rng; flax_fix_rng_separator off, its default)."""
+  digest = hashlib.sha1(module_name.encode('utf-8') + bytes([1])).digest()
+  return prng.fold_in(key, int.from_bytes(digest[:4], 'big'))
+
+
+def init_decoder_params(key) -> dict:
+  """The state dict of the JAX package's init_decoder_params(key)
+  (ble_tpu/generative/vae.py:114-116): flax's init of Decoder, drawn on
+  the CPU. Dense_i's kernel is lecun_normal, a normal truncated to +-2
+  scaled by sqrt(1 / fan_in) / 0.87962566103423978, drawn over its
+  (fan_in, fan_out) layout from Dense_i's rng; the biases are zeros.
+  `key` is a (2,) key (utils/prng.py); the JAX fallback's is key(0)."""
   params = {}
-  for name, w in Decoder().state_dict().items():
-    if name.endswith('bias'):
-      params[name] = torch.zeros_like(w)
-      continue
-    fan_in = w.shape[1]
-    # Inverse-CDF draws of the standard normal truncated to [-2, 2], scaled
-    # so the truncated distribution has variance 1/fan_in.
-    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-    u = lo + (1.0 - 2.0 * lo) * torch.rand(w.shape, generator=generator,
-                                           dtype=torch.float64)
-    x = math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
-    std = math.sqrt(1.0 / fan_in) / .87962566103423978
-    params[name] = (x * std).to(torch.float32)
+  for i, layer in enumerate(Decoder().layers):
+    fan_out, fan_in = layer.weight.shape
+    variance = torch.tensor(1.0 / fan_in, dtype=torch.float32)
+    stddev = torch.sqrt(variance) / torch.tensor(.87962566103423978,
+                                                 dtype=torch.float32)
+    kernel = prng.truncated_normal(_flax_param_key(key, f'Dense_{i}'),
+                                   (fan_in, fan_out)) * stddev
+    params[f'layers.{i}.weight'] = kernel.t().contiguous()
+    params[f'layers.{i}.bias'] = torch.zeros((fan_out,))
   return params
 
 
-def sample_latent(generator: torch.Generator):
-  """z ~ N(0, I), (64,), drawn on the CPU from `generator`."""
-  return torch.randn((NUM_LATENTS,), generator=generator)
+def sample_latent(keys):
+  """z ~ N(0, I), (E, 64): normal(key, (64,)) of each key (E, 2), drawn on
+  the CPU (ble_tpu/generative/vae.py:119-122)."""
+  return prng.normal(keys, (NUM_LATENTS,))
 
 
 @torch.no_grad()
-def sample_field(decoder: Decoder, generator: torch.Generator):
-  """One decoded grid (21, 21, 10, 9, 2) from a latent drawn from
-  `generator` (reference generative_wind_field.py:52-62), on the decoder's
-  device."""
+def sample_field(decoder: Decoder, keys):
+  """Decoded grids (E, 21, 21, 10, 9, 2) from the latents of keys (E, 2)
+  (reference generative_wind_field.py:52-62), on the decoder's device."""
   device = next(decoder.parameters()).device
-  return decoder(sample_latent(generator).to(device))
+  return decoder(sample_latent(keys).to(device))

@@ -6,21 +6,24 @@ JAX package's order: an explicit path, then $BLE_TPU_MODELS/<file>, then
 the file beside this module, and then
 
   offlineskies22_decoder.msgpack (the flax msgpack of the VAE wind
-    decoder): a deterministic untrained decoder drawn with seed 0;
+    decoder): the JAX package's untrained fallback,
+    vae.init_decoder_params(PRNGKey(0)), drawn here with the port's
+    threefry (utils/prng.py);
   perciatelli44.msgpack (the Nature-paper QR-DQN, converted offline from
     perciatelli44.pb by models/convert_perciatelli44.py): FileNotFoundError.
 """
 
+import functools
 import os
 from typing import Optional
 
 import numpy as np
-import torch
 
 from ble_tpu_torch import bridge
 from ble_tpu_torch import resolve_device
 from ble_tpu_torch.agents import qrdqn
 from ble_tpu_torch.generative import vae
+from ble_tpu_torch.utils import prng
 
 _OFFLINESKIES_FILENAME = 'offlineskies22_decoder.msgpack'
 _PERCIATELLI_FILENAME = 'perciatelli44.msgpack'
@@ -52,16 +55,27 @@ def read_flax_msgpack(data: bytes):
   return msgpack.unpackb(data, ext_hook=ext_hook, raw=False)
 
 
+@functools.lru_cache(maxsize=1)
+def _fallback_decoder_params() -> dict:
+  return vae.init_decoder_params(prng.key(0))
+
+
+def fallback_decoder_params() -> dict:
+  """vae.init_decoder_params(key(0)) on the CPU, drawn once a process; each
+  call returns its own copy."""
+  return {k: v.clone() for k, v in _fallback_decoder_params().items()}
+
+
 def load_offlineskies22(path: Optional[str] = None,
                         device=None) -> vae.Decoder:
   """The VAE wind decoder on `device` (default: cuda), in eval mode.
 
   A blob that is found is read with the `msgpack` module; one that cannot
   be read raises, it never falls back. With no blob the decoder is the
-  deterministic init of vae.init_decoder_params with a generator seeded
-  with 0. Its weights differ from the JAX package's fallback,
-  vae.init_decoder_params(PRNGKey(0)), since torch cannot reproduce
-  jax.random: the two packages decode different fields from the fallback.
+  JAX package's fallback, vae.init_decoder_params(PRNGKey(0)), to a few
+  float32 ulp (its normals go through torch's log1p): both packages decode
+  the same fields from it. Its 6.5 M draws run once a process
+  (fallback_decoder_params).
   """
   device = resolve_device(device)
   decoder = vae.Decoder()
@@ -71,7 +85,7 @@ def load_offlineskies22(path: Optional[str] = None,
         params = bridge.decoder_params_from_flax(read_flax_msgpack(f.read()))
       break
   else:
-    params = vae.init_decoder_params(torch.Generator().manual_seed(0))
+    params = fallback_decoder_params()
   decoder.load_state_dict(params)
   return decoder.to(device).eval()
 

@@ -25,6 +25,7 @@ import argparse
 import os
 
 from ble_tpu_torch import resolve_device
+from ble_tpu_torch.agents import base
 from ble_tpu_torch.agents import networks
 from ble_tpu_torch.agents import perciatelli44
 from ble_tpu_torch.agents import qrdqn
@@ -41,19 +42,23 @@ AGENTS = ('station_seeker', 'random', 'random_walk', 'perciatelli44',
           'quantile', 'finetune_perciatelli', 'dqn', 'mlp', 'r2d2')
 
 
-def make_policy_fns(agent_name: str, checkpoint_dir=None, device=None):
-  """(policy_init, policy_step) for the batched evaluator."""
+def make_policy_fns(agent_name: str, checkpoint_dir=None, device=None
+                    ) -> base.Policy:
+  """(policy_init, policy_step, policy_draw) for the batched evaluator
+  (agents/base.py), as ble_tpu/train/eval.py:make_policy_fns gives them."""
   if agent_name == 'station_seeker':
-    return (lambda n, gen: (),
-            lambda state, obs, gen: (state, station_seeker.pick_action(obs)))
+    return base.Policy(
+        lambda keys, dev: (),
+        lambda state, obs, draws: (state, station_seeker.pick_action(obs)))
   if agent_name == 'random':
     return random_walk.random_policy(env_lib.NUM_ACTIONS)
   if agent_name == 'random_walk':
-    return random_walk.init, random_walk.step
+    return base.Policy(random_walk.init, random_walk.step, random_walk.draw)
   if agent_name == 'perciatelli44':
     policy = perciatelli44.make_policy(
         loader.load_perciatelli44(device=device))
-    return (lambda n, gen: ()), lambda state, obs, gen: (state, policy(obs))
+    return base.Policy(lambda keys, dev: (),
+                       lambda state, obs, draws: (state, policy(obs)))
   if agent_name in learner_lib.TRAINABLE_AGENTS:
     config = learner_lib.TrainConfig(agent=agent_name)
     if agent_name == 'finetune_perciatelli' and checkpoint_dir is None:
@@ -117,12 +122,13 @@ def main(argv=None):
         'generative', loader.load_offlineskies22(device=device))
   else:
     field_fn = env_lib.make_field_fn('static')
-  policy_init, policy_step = make_policy_fns(args.agent, args.checkpoint_dir,
-                                             device)
+  policy_init, policy_step, policy_draw = make_policy_fns(
+      args.agent, args.checkpoint_dir, device)
   eval_fn = eval_lib.build_eval_fn(
       env_params, field_fn, policy_init, policy_step,
       max_steps=suite.max_episode_length,
-      record_flight_path=args.flight_path, device=device)
+      record_flight_path=args.flight_path, device=device,
+      policy_draw=policy_draw)
   results = eval_lib.evaluate(eval_fn, seeds,
                               batch_size=min(args.batch_size, len(seeds)))
   os.makedirs(args.output_dir, exist_ok=True)

@@ -1,7 +1,8 @@
 """Batched evaluation: every seed of a suite steps in lockstep (the port of
 ble_tpu/train/eval_lib.py; reference eval/eval_lib.py:83-211).
 
-The episode is a Python loop over steps. Every REFRESH_PERIOD (64) steps
+Each seed's world and policy draws are the JAX package's, from the same
+integer seed (utils/prng.py). The episode is a Python loop over steps. Every REFRESH_PERIOD (64) steps
 the GP inverse is recomputed exactly, and with the field-slab cache on the
 slab re-centers every env.FIELD_CACHE_EVERY (8) steps, as ble_tpu's nested scans
 do. Terminal envs are masked: reward accumulates through the terminal step,
@@ -19,6 +20,7 @@ import torch.distributed as dist
 from ble_tpu_torch import resolve_device
 from ble_tpu_torch.env import env as env_lib
 from ble_tpu_torch.env import wind_gp as wind_gp_lib
+from ble_tpu_torch.utils import prng
 
 
 @dataclasses.dataclass
@@ -34,26 +36,57 @@ class EvaluationResult:
   flight_path: Optional[List[Dict[str, float]]] = None
 
 
+def policy_keys(seeds):
+  """The policy keys of integer seeds, as ble_tpu/train/eval_lib.py:136-139
+  and :182 make them from key = seed_to_key(seed): (pkey (E, 2), akey
+  (E, 2), step_key_base (E, 2)) with pkey, akey = split(fold_in(key, 1))
+  and step_key_base = fold_in(key, 2), whose split(., max_steps)[t] is
+  step t's key (see step_keys)."""
+  keys = env_lib.seed_keys(seeds)
+  pa = prng.split(prng.fold_in(keys, 1))
+  return pa[:, 0], pa[:, 1], prng.fold_in(keys, 2)
+
+
+def step_keys(base, start: int, stop: int):
+  """Steps start .. stop - 1 of split(base, max_steps) for any max_steps >=
+  stop, (stop - start, E, 2): a fold-like split's key t depends on t alone
+  (prng.py:1156-1161), so a chunk of an episode's step keys is drawn
+  without the rest."""
+  return prng.split(base, stop, start).transpose(0, 1)
+
+
 def build_eval_fn(env_params: env_lib.EnvParams, field_fn: Callable,
                   policy_init: Callable, policy_step: Callable,
                   max_steps: int = 960, record_flight_path: bool = False,
-                  from_states: bool = False, device=None):
+                  from_states: bool = False, device=None,
+                  policy_draw: Optional[Callable] = None):
   """Returns a function evaluating a batch of seeds.
+
+  Each seed's world and policy keys are the JAX package's
+  (ble_tpu/train/eval_lib.py:136-139,182): the env reset from
+  seed_to_key(seed) (env.reset) and the policy keys of policy_keys. So a
+  seed's result depends neither on the seeds evaluated beside it nor on
+  the shard it is in.
 
   Args:
     env_params: environment parameters.
-    field_fn: (seeds, device) -> the forecast grid every env starts from,
-      (21, 21, 10, 9, 2), or one per env (env.make_field_fn).
-    policy_init: (num_envs, generator) -> policy state.
-    policy_step: (policy_state, obs (E, 1099), generator) ->
-      (policy_state, actions (E,) int32). The generator lies on the envs'
-      device.
+    field_fn: (forecast keys (E, 2), device) -> the forecast grid every env
+      starts from, (21, 21, 10, 9, 2), or one per env (env.make_field_fn).
+    policy_init: (keys (E, 2), device) -> policy state (agents/base.py).
+    policy_step: (policy_state, obs (E, 1099), draws) -> (policy_state,
+      actions (E,) int32).
     max_steps: episode cap (suites use 960).
     record_flight_path: also return (E, T, 6) [x_km, y_km, pressure,
       superpressure, elapsed_s, soc] trajectories.
     from_states: the function takes (seeds, env_state, obs) with
-      pre-built initial states instead of resetting from the seeds.
+      pre-built initial states (e.g. parity_reset's) instead of resetting
+      from the seeds; the seeds then only make the policy keys.
     device: torch device (default: cuda).
+    policy_draw: None, or keys (..., 2) -> the step's draws (...) on the
+      CPU. The first action's draws come from akey, step t's from its step
+      key; they are drawn on the host one GP chunk (REFRESH_PERIOD steps)
+      at a time and moved to the device once a chunk, so a step launches
+      nothing for them. Without it policy_step gets None.
 
   Returns:
     eval_fn(seeds) -> dict of (E,) result tensors (or
@@ -69,11 +102,16 @@ def build_eval_fn(env_params: env_lib.EnvParams, field_fn: Callable,
     if env_state is None:
       env_state, obs = env_lib.reset(env_params, seeds, field_fn, device)
     n = len(seeds)
-    gen = torch.Generator(device=obs.device).manual_seed(
-        seeds[0] if seeds else 0)
-    pstate = policy_init(n, gen)
-    pstate, action = policy_step(pstate, obs, gen)
     dev = obs.device
+    pkey, akey, base = policy_keys(seeds)
+
+    def draws_of(keys):
+      return None if policy_draw is None else policy_draw(keys).to(dev)
+
+    pstate = policy_init(pkey, dev)
+    first = draws_of(akey[None])
+    pstate, action = policy_step(pstate, obs, None if first is None
+                                 else first[0])
     active = torch.ones((n,), dtype=torch.bool, device=dev)
     reward = torch.zeros((n,), dtype=torch.float32, device=dev)
     within = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -81,10 +119,15 @@ def build_eval_fn(env_params: env_lib.EnvParams, field_fn: Callable,
     flags = {k: torch.zeros((n,), dtype=torch.bool, device=dev)
              for k in ('out_of_power', 'envelope_burst', 'zeropressure')}
     paths = []
+    chunk = None
     for t in range(max_steps):
-      if t < n_chunked and t % period == 0:
-        env_state = dataclasses.replace(
-            env_state, gp=wind_gp_lib.refresh(env_state.gp))
+      if t % period == 0:
+        stop = min(t + period, max_steps)
+        chunk = (None if policy_draw is None else
+                 draws_of(step_keys(base, t, stop)))
+        if t < n_chunked:
+          env_state = dataclasses.replace(
+              env_state, gp=wind_gp_lib.refresh(env_state.gp))
       # The tail after the last whole GP chunk re-centers every step.
       if env_params.field_cache and (t % env_lib.FIELD_CACHE_EVERY == 0 or
                                      t >= n_chunked):
@@ -105,7 +148,9 @@ def build_eval_fn(env_params: env_lib.EnvParams, field_fn: Callable,
             b.superpressure_pa, b.time_elapsed_s.to(torch.float32),
             out.info['battery_soc']], dim=-1))
       env_state = out.state
-      pstate, action = policy_step(pstate, out.observation, gen)
+      pstate, action = policy_step(pstate, out.observation,
+                                   None if chunk is None
+                                   else chunk[t % period])
 
     result = {
         'cumulative_reward': reward,

@@ -39,6 +39,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ble_tpu_torch import resolve_device
+from ble_tpu_torch.agents import base
 from ble_tpu_torch.agents import dqn as dqn_lib
 from ble_tpu_torch.agents import marco_polo
 from ble_tpu_torch.agents import mlp_agent
@@ -450,22 +451,22 @@ def run_episode_chunk(config: TrainConfig, env_params: env_lib.EnvParams,
   return ts, {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
 
 
-def make_eval_policy(config: TrainConfig, network):
-  """(policy_init, policy_step) for eval_lib.build_eval_fn: greedy actions
-  of `network`. A recurrent agent threads its LSTM carry through the
-  policy state, one lane an env (ble_tpu learner.py:457-484)."""
+def make_eval_policy(config: TrainConfig, network) -> base.Policy:
+  """The greedy policy of `network` for eval_lib.build_eval_fn (it draws
+  nothing). A recurrent agent threads its LSTM carry through the policy
+  state, one lane an env (ble_tpu learner.py:457-484)."""
   core = make_agent_core(config)
 
   if core.actor_select is not None:
-    def policy_init(n, generator):
-      return core.actor_init(network, n, generator.device)
+    def policy_init(keys, device):
+      return core.actor_init(network, keys.shape[0], device)
 
-    def policy_step(state, obs, generator):
-      return core.actor_select(network, state, obs, generator, 0.0)
+    def policy_step(state, obs, draws):
+      return core.actor_select(network, state, obs, None, 0.0)
 
-    return policy_init, policy_step
+    return base.Policy(policy_init, policy_step)
 
-  def policy_step(state, obs, generator):
-    return state, core.select_action(network, obs, generator, 0.0)
+  def policy_step(state, obs, draws):
+    return state, core.select_action(network, obs, None, 0.0)
 
-  return (lambda n, generator: ()), policy_step
+  return base.Policy(lambda keys, device: (), policy_step)

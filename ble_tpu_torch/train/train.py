@@ -41,9 +41,10 @@ def make_periodic_eval(base_dir, env_params, field_fn, config,
 
   def eval_cb(ts, iteration):
     policy = learner_lib.make_eval_policy(config, core.params_of(ts.learner))
-    eval_fn = eval_lib.build_eval_fn(env_params, field_fn, *policy,
+    eval_fn = eval_lib.build_eval_fn(env_params, field_fn, policy.init,
+                                     policy.step,
                                      max_steps=suite.max_episode_length,
-                                     device=device)
+                                     device=device, policy_draw=policy.draw)
     summary = eval_lib.summarize(eval_lib.evaluate(eval_fn, suite.seeds))
     record = {
         'iteration': iteration,

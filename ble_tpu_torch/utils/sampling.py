@@ -1,10 +1,10 @@
-"""Initial-condition samplers with an explicit torch.Generator (the port of
+"""Initial-condition samplers over a batch of jax.random keys (the port of
 ble_tpu/utils/sampling.py; reference utils/sampling.py).
 
-They draw from the same distributions as the JAX package, not the same
-bits: jax.random split trees cannot be reproduced, so tests that compare
-the two packages hand JAX-drawn initial conditions across `init_state`.
-Draws happen on the CPU; callers move the results to their device.
+Each sampler takes keys (E, 2) (utils/prng.py) and draws what its JAX
+counterpart draws from each key, so a key gives the same initial
+conditions in both packages. The draws run on the CPU; callers move the
+results to their device.
 """
 
 import datetime as dt
@@ -15,6 +15,7 @@ import torch
 from ble_tpu_torch.env import atmosphere as atmosphere_lib
 from ble_tpu_torch.env import safety
 from ble_tpu_torch.env import wind_field as wind_field_lib
+from ble_tpu_torch.utils import prng
 from ble_tpu_torch.utils import time_lib
 
 MIN_ALLOWABLE_UPWELLING_IR = 225.0
@@ -26,38 +27,36 @@ _TIME_END_S = time_lib.unix_seconds_from_datetime(
     dt.datetime(2014, 12, 31, tzinfo=dt.timezone.utc))
 
 
-def _uniform(g, n, lo, hi):
-  return lo + torch.rand((n,), generator=g) * (hi - lo)
-
-
-def sample_location(g: torch.Generator, n: int = 1):
-  """(lat_rad, lng_rad): lat in +-10 deg, lng in +-175 deg."""
-  lat_deg = _uniform(g, n, -10.0, 10.0)
-  lng_deg = _uniform(g, n, -175.0, 175.0)
+def sample_location(keys):
+  """(lat_rad, lng_rad): lat in +-10 deg, lng in +-175 deg
+  (ble_tpu/utils/sampling.py:26-32)."""
+  ks = prng.split(keys)
+  lat_deg = prng.uniform(ks[:, 0], (), -10.0, 10.0)
+  lng_deg = prng.uniform(ks[:, 1], (), -175.0, 175.0)
   return torch.deg2rad(lat_deg), torch.deg2rad(lng_deg)
 
 
-def sample_time(g: torch.Generator, n: int = 1):
-  """Uniform int32 unix seconds in [2011-01-01, 2014-12-31)."""
-  offset = torch.randint(0, _TIME_END_S - _TIME_BEGIN_S, (n,), generator=g)
-  return (_TIME_BEGIN_S + offset).to(torch.int32)
+def sample_time(keys):
+  """Uniform int32 unix seconds in [2011-01-01, 2014-12-31): a
+  jax.random.choice in the default int dtype (ble_tpu/utils/sampling.py:
+  35-48)."""
+  offset = prng.choice(keys, _TIME_END_S - _TIME_BEGIN_S)
+  return (_TIME_BEGIN_S + offset.to(torch.int64)).to(torch.int32)
 
 
-def sample_initial_offset(g: torch.Generator, n: int = 1):
-  """(x_m, y_m): Beta(1.2, 2)-distributed radius within 200 km, uniform
-  angle (reference balloon_arena.py:242-250)."""
-  a = torch._standard_gamma(torch.full((n,), 1.2), generator=g)
-  b = torch._standard_gamma(torch.full((n,), 2.0), generator=g)
-  radius_m = a / (a + b) * 200_000.0
-  theta = _uniform(g, n, 0.0, 2.0 * math.pi)
-  return torch.cos(theta) * radius_m, torch.sin(theta) * radius_m
+def sample_pressure(keys, atmosphere: atmosphere_lib.AtmosphereParams):
+  """Uniform pressure in [6500, p(50 kft)] of each env's atmosphere
+  (ble_tpu/utils/sampling.py:51-61)."""
+  max_pressure, _, _ = atmosphere_lib.at_height(atmosphere,
+                                                safety.ALTITUDE_MIN_M)
+  return prng.uniform(keys, (), MIN_PRESSURE_PA, max_pressure)
 
 
-def sample_upwelling_infrared(g: torch.Generator, n: int = 1,
-                              num_tries: int = 16):
+def sample_upwelling_infrared(keys, num_tries: int = 16):
   """LogitNormal(2, 315)-scaled upwelling IR, rejecting values below
-  225 W/m^2: the first acceptable of `num_tries` candidates."""
-  z = torch.randn((n, num_tries), generator=g) * 315.0 + 2.0
+  225 W/m^2: the first acceptable of `num_tries` candidates
+  (ble_tpu/utils/sampling.py:64-76)."""
+  z = prng.fma32(prng.normal(keys, (num_tries,)), 315.0, 2.0)
   candidates = 315.0 * torch.sigmoid(z)
   ok = candidates >= MIN_ALLOWABLE_UPWELLING_IR
   first = ok.to(torch.uint8).argmax(dim=-1, keepdim=True)
@@ -66,37 +65,40 @@ def sample_upwelling_infrared(g: torch.Generator, n: int = 1,
                      torch.full_like(pick, MIN_ALLOWABLE_UPWELLING_IR))
 
 
-def sample_pressure_from_unit(unit, atmosphere: atmosphere_lib.AtmosphereParams):
-  """Uniform pressure in [6500, p(50 kft)] from uniform draws in [0, 1)."""
-  max_pressure, _, _ = atmosphere_lib.at_height(atmosphere,
-                                                safety.ALTITUDE_MIN_M)
-  return MIN_PRESSURE_PA + unit * (max_pressure - MIN_PRESSURE_PA)
+def sample_initial_offset(keys):
+  """(x_m, y_m): Beta(1.2, 2)-distributed radius within 200 km, uniform
+  angle (ble_tpu/utils/sampling.py:79-86; reference
+  balloon_arena.py:242-250)."""
+  ks = prng.split(keys)
+  radius_m = prng.beta(ks[:, 0], 1.2, 2.0) * 200_000.0
+  theta = prng.uniform(ks[:, 1], (), 0.0, 2.0 * math.pi)
+  return torch.cos(theta) * radius_m, torch.sin(theta) * radius_m
 
 
-def sample_initial_conditions(seeds):
-  """Per-seed initial conditions, each seed from its own generator.
+def sample_initial_conditions(keys):
+  """Every env's initial conditions from its reset key, as
+  ble_tpu/env/env.py:reset_from_field splits it (7 ways: atmosphere, time,
+  offset, location, pressure, upwelling IR, wind).
 
-  Returns a dict of CPU tensors with a leading seed axis: atmosphere_alpha,
-  time_s, x_m, y_m, center_lat_rad, center_lng_rad, pressure_unit (map
-  with `sample_pressure_from_unit`), upwelling_ir, noise_seeds (E, 2, 5)
-  and noise_offsets (E, 2, 5, 4).
+  Returns a dict of CPU tensors with a leading env axis: atmosphere_alpha,
+  time_s, x_m, y_m, center_lat_rad, center_lng_rad, pressure_pa,
+  upwelling_ir, noise_seeds (E, 2, 5) and noise_offsets (E, 2, 5, 4).
   """
-  rows = []
-  for seed in seeds:
-    g = torch.Generator().manual_seed(int(seed))
-    lat, lng = sample_location(g)
-    x_m, y_m = sample_initial_offset(g)
-    noise_seeds, noise_offsets = wind_field_lib.reset_noise(g)
-    rows.append({
-        'atmosphere_alpha': torch.rand((1,), generator=g),
-        'time_s': sample_time(g),
-        'x_m': x_m,
-        'y_m': y_m,
-        'center_lat_rad': lat,
-        'center_lng_rad': lng,
-        'pressure_unit': torch.rand((1,), generator=g),
-        'upwelling_ir': sample_upwelling_infrared(g),
-        'noise_seeds': noise_seeds,
-        'noise_offsets': noise_offsets,
-    })
-  return {k: torch.cat([r[k] for r in rows]) for k in rows[0]}
+  ks = prng.split(keys, 7)
+  alpha = prng.uniform(ks[:, 0])
+  x_m, y_m = sample_initial_offset(ks[:, 2])
+  lat, lng = sample_location(ks[:, 3])
+  noise_seeds, noise_offsets = wind_field_lib.reset_noise(
+      prng.split(ks[:, 6])[:, 0])
+  return {
+      'atmosphere_alpha': alpha,
+      'time_s': sample_time(ks[:, 1]),
+      'x_m': x_m,
+      'y_m': y_m,
+      'center_lat_rad': lat,
+      'center_lng_rad': lng,
+      'pressure_pa': sample_pressure(ks[:, 4], atmosphere_lib.make(alpha)),
+      'upwelling_ir': sample_upwelling_infrared(ks[:, 5]),
+      'noise_seeds': noise_seeds,
+      'noise_offsets': noise_offsets,
+  }

@@ -304,14 +304,15 @@ def test_r2d2_eval_policy_carries_its_state():
   some observation."""
   config = _harness_config('r2d2')
   net = r2d2.make_network(config.r2d2, 1099, torch.Generator().manual_seed(0))
-  policy_init, policy_step = learner.make_eval_policy(config, net)
-  gen = torch.Generator()
-  state = policy_init(64, gen)
+  policy_init, policy_step, policy_draw = learner.make_eval_policy(config,
+                                                                   net)
+  assert policy_draw is None
+  state = policy_init(torch.zeros((64, 2), dtype=torch.int64), 'cpu')
   assert all(tuple(c.shape) == (64, 16) and not bool(c.any()) for c in state)
   obs = torch.from_numpy(np.random.RandomState(0).rand(2, 64, 1099)
                          .astype(np.float32))
-  state, a0 = policy_step(state, obs[0], gen)
-  state, a1 = policy_step(state, obs[1], gen)
+  state, a0 = policy_step(state, obs[0], None)
+  state, a1 = policy_step(state, obs[1], None)
   with torch.no_grad():
     carry, (q0, _) = net(net.initial_state(64), obs[0])
     carry, (q1, _) = net(carry, obs[1])

@@ -97,19 +97,19 @@ def test_bench_and_profile_step_default_to_cuda(monkeypatch):
 
 
 def test_eval_policy_draws_on_the_envs_device():
-  """build_eval_fn hands the policy a generator on the envs' device, and
-  the random policy draws there."""
+  """build_eval_fn hands the policy its step's draws on the envs' device,
+  one (E,) row a step, and the random policy acts there."""
   seen = []
-  init, policy = random_walk.random_policy(env_lib.NUM_ACTIONS)
+  init, policy, draw = random_walk.random_policy(env_lib.NUM_ACTIONS)
 
-  def step(state, obs, generator):
-    seen.append(generator.device)
-    state, actions = policy(state, obs, generator)
+  def step(state, obs, draws):
+    seen.append((draws.device, tuple(draws.shape)))
+    state, actions = policy(state, obs, draws)
     assert actions.device == obs.device and actions.dtype == torch.int32
     return state, actions
 
   fn = eval_lib.build_eval_fn(env_lib.EnvParams(),
                               env_lib.make_field_fn('static'), init, step,
-                              max_steps=2, device='cpu')
+                              max_steps=2, device='cpu', policy_draw=draw)
   fn([0, 1])
-  assert seen == [torch.device('cpu')] * 3
+  assert seen == [(torch.device('cpu'), (2,))] * 3

@@ -1,6 +1,7 @@
 """The PyTorch port's environment and the slice as a whole against the JAX
-package, on the CPU: worlds drawn by ble_tpu (jax.random cannot be
-reproduced in torch) are handed across through the bridge."""
+package, on the CPU: worlds drawn by ble_tpu are handed across through the
+bridge, so a departure here is the step's, not the reset's (the port's
+own reset by seed is held in tests/test_torch_worlds.py)."""
 
 import dataclasses
 import functools
@@ -56,15 +57,14 @@ def worlds():
 
 def test_bridge_round_trip_is_bit_exact(worlds):
   """ble_tpu's EnvState -> port EnvState -> nested numpy dict gives back
-  every leaf bit for bit, the bf16 grid included. The one leaf the port
-  does not carry is the wind field's noise_perms, the OpenSimplex
-  permutation tables of ble_tpu's parity mode (ROADMAP A13), None on the
-  fast path both packages run."""
+  every leaf bit for bit, the bf16 grid included, and the wind field's
+  noise_perms (the OpenSimplex tables of the parity mode) None on the fast
+  path both packages run."""
   _, jstates, _ = worlds
   want = _np_dict(jstates)
   got = bridge.to_dict(_to_port(jstates))
-  assert set(want['wind']) - set(got['wind']) == {'noise_perms'}
-  del want['wind']['noise_perms']
+  assert set(want['wind']) == set(got['wind'])
+  assert want['wind']['noise_perms'] is None
 
   def compare(g, w, path):
     if isinstance(w, dict):

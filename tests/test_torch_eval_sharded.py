@@ -21,8 +21,8 @@ SEEDS = [0, 1, 2, 3, 4]
 STEPS = 8
 
 
-def _eval(out_dir, *extra):
-  eval_cli.main(['--agent', 'station_seeker', '--suite', 'micro_eval',
+def _eval(out_dir, *extra, agent='station_seeker'):
+  eval_cli.main(['--agent', agent, '--suite', 'micro_eval',
                  '--wind_field', 'static', '--device', 'cpu',
                  '--output_dir', str(out_dir), *extra])
 
@@ -96,3 +96,25 @@ def test_evaluate_distributed_equals_evaluate(tmp_path, monkeypatch):
   want = eval_lib.evaluate(eval_fn, SEEDS)
   assert ranks[0] == ranks[1] == want
   assert eval_lib.evaluate_distributed(eval_fn, SEEDS) == want
+
+
+@pytest.mark.parametrize('agent', ['random', 'random_walk'])
+def test_a_seeds_random_draws_do_not_depend_on_its_batch(tmp_path,
+                                                         monkeypatch, agent):
+  """The agents that draw: seed 1 evaluated alone, in the batch [0, 1] and
+  in shard 1 of `--num_shards 2` over [0, 1, 2, 3] (the batch [1, 3])
+  gives the same result in bits, as ble_tpu's per-seed keys give
+  (ble_tpu/train/eval_lib.py:136-139,182)."""
+  got = []
+  for seeds, extra in (([1], ()), ([0, 1], ()),
+                       ([0, 1, 2, 3], ('--num_shards', '2', '--shard_idx',
+                                       '1'))):
+    monkeypatch.setattr(eval_cli.suites, 'get_eval_suite',
+                        lambda name, seeds=seeds: suites.EvaluationSuite(
+                            seeds, STEPS))
+    out_dir = tmp_path / str(len(got))
+    _eval(out_dir, *extra, agent=agent)
+    shard = '_1' if extra else ''
+    results = _results(out_dir / f'{agent}_micro_eval{shard}.json')
+    got.append(next(r for r in results if r['seed'] == 1))
+  assert got[0] == got[1] == got[2]

@@ -28,6 +28,7 @@ from ble_tpu_torch.env import safety
 from ble_tpu_torch.env import wind_field
 from ble_tpu_torch.generative import vae
 from ble_tpu_torch.ops import physics
+from ble_tpu_torch.utils import prng
 
 E = 8
 STEPS = 30
@@ -259,13 +260,14 @@ def test_registered_agents_drive_the_gym_env(gym, name):
 
 
 def test_random_walk_targets_drift_and_steer():
-  gen = torch.Generator().manual_seed(0)
-  state = random_walk.init(4, gen)
+  keys = prng.split(prng.key(0), 4)
+  state = random_walk.init(keys, 'cpu')
   assert bool(((state.target_pressure >= 6500) &
                (state.target_pressure < 11400)).all())
   obs = torch.zeros((4, 1099))
   obs[:, 0] = torch.tensor([0.0, 1.0, 0.5, 0.3])  # 5000, 14000, 9500, 7700 Pa
-  new_state, actions = random_walk.step(state, obs, gen)
+  new_state, actions = random_walk.step(state, obs,
+                                        random_walk.draw(prng.fold_in(keys, 1)))
   assert bool((new_state.time_elapsed_s == 180).all())
   assert not torch.equal(new_state.target_pressure, state.target_pressure)
   assert actions.dtype == torch.int32

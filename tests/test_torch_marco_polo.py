@@ -120,5 +120,5 @@ def test_begin_episode_draws_on_the_generators_device():
                state.rw.time_elapsed_s):
     assert leaf.device == torch.device('cpu') and leaf.shape == (4000,)
   assert state.phase_steps.dtype == torch.int32
-  walk = random_walk.init(3, torch.Generator().manual_seed(0))
+  walk = random_walk.init_from_generator(3, torch.Generator().manual_seed(0))
   assert walk.time_elapsed_s.dtype == torch.float32

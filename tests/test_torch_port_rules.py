@@ -103,8 +103,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
   with pytest.raises(RuntimeError, match='CUDA'):
     ble_tpu_torch.resolve_device()
   with pytest.raises(RuntimeError, match='CUDA'):
-    env_lib.reset_from_field(env_lib.EnvParams(),
-                             wind_field.simple_static_field(), [0])
+    env_lib.reset_from_keys(env_lib.EnvParams(),
+                            wind_field.simple_static_field(),
+                            env_lib.seed_keys([0]))
   with pytest.raises(RuntimeError, match='CUDA'):
     env_lib.reset(env_lib.EnvParams(), [0], env_lib.make_field_fn('static'))
   policy = (lambda n, g: (),

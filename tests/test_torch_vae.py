@@ -18,6 +18,7 @@ from ble_tpu_torch.generative import vae
 from ble_tpu_torch.models import loader
 from ble_tpu_torch.train import eval as eval_cli
 from ble_tpu_torch.train import suites
+from ble_tpu_torch.utils import prng
 
 
 @pytest.fixture(scope='module')
@@ -70,10 +71,10 @@ def test_loader_raises_on_unreadable_blob(tmp_path, monkeypatch):
 
 
 def test_loader_fallback_is_deterministic(monkeypatch):
-  """No blob: the seed-0 torch init, the same across calls, decoding
-  finite grids; a seed's field comes from its own generator and equals,
-  to the bit, its field decoded in any batch (decoder calls of
-  env.DECODE_BLOCK latents: here across a block's edge)."""
+  """No blob: the JAX package's PRNGKey(0) init, the same across calls,
+  decoding finite grids; a seed's field comes from its own forecast key
+  and equals, to the bit, its field decoded in any batch (decoder calls
+  of env.DECODE_BLOCK latents: here across a block's edge)."""
   monkeypatch.delenv('BLE_TPU_MODELS', raising=False)
   assert not os.path.exists(os.path.join(os.path.dirname(loader.__file__),
                                          loader._OFFLINESKIES_FILENAME))
@@ -83,18 +84,20 @@ def test_loader_fallback_is_deterministic(monkeypatch):
     assert torch.equal(wa, wb), name
   w0 = a.state_dict()['layers.0.weight']
   assert abs(float(w0.std()) - 1 / 8) < 5e-3  # lecun_normal, fan_in 64.
-  field = vae.sample_field(a, torch.Generator().manual_seed(3))
+  field = vae.sample_field(a, prng.key(3)[None])[0]
   assert field.shape == (21, 21, 10, 9, 2)
   assert bool(torch.isfinite(field).all()) and float(field.abs().max()) > 0
   field_fn = env_lib.make_field_fn('generative', a)
-  both = field_fn([5, 3], 'cpu')
-  alone = field_fn([3], 'cpu')
+  keys = env_lib.forecast_keys(
+      env_lib.seed_keys(range(env_lib.DECODE_BLOCK + 4)))
+  both = field_fn(keys[[5, 3]], 'cpu')
+  alone = field_fn(keys[[3]], 'cpu')
   assert torch.equal(both[1], alone[0])
   assert not torch.equal(both[0], both[1])
-  many = field_fn(list(range(env_lib.DECODE_BLOCK + 4)), 'cpu')
+  many = field_fn(keys, 'cpu')
   assert many.shape[0] == env_lib.DECODE_BLOCK + 4
   last = env_lib.DECODE_BLOCK + 3
-  assert torch.equal(many[last], field_fn([last], 'cpu')[0])
+  assert torch.equal(many[last], field_fn(keys[[last]], 'cpu')[0])
   assert torch.equal(many[3], alone[0])
 
 

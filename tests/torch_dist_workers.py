@@ -74,12 +74,13 @@ def forced_inactive(num_envs: int = GLOBAL_E) -> torch.Tensor:
 
 
 def recording_field_fn(seen: list):
-  """The static field_fn, noting the world seeds of each reset."""
+  """The static field_fn, noting the forecast keys of each reset's worlds
+  (one a world seed)."""
   static = env_lib.make_field_fn('static')
 
-  def field_fn(seeds, device):
-    seen.append([int(s) for s in seeds])
-    return static(seeds, device)
+  def field_fn(keys, device):
+    seen.append(keys.tolist())
+    return static(keys, device)
 
   return field_fn
 
