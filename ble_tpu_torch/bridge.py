@@ -94,6 +94,25 @@ def decoder_params_from_flax(params) -> dict:
   return _dense_stack_from_flax(params)
 
 
+def vae_params_from_flax(params) -> dict:
+  """generative/vae.WindFieldVAE's state dict from the flax tree of the JAX
+  package's WindFieldVAE: encoder/Dense_0..2, encoder/mean and
+  encoder/logvar, decoder/Dense_0..3 (each kernel transposed, as
+  _dense_stack_from_flax does) and the scalar sigma."""
+  tree = params['params']
+  out = {f'decoder.{k}': v for k, v in
+         _dense_stack_from_flax({'params': tree['decoder']}).items()}
+  encoder = tree['encoder']
+  out.update({f'encoder.{k}': v for k, v in
+              _dense_stack_from_flax({'params': encoder}).items()})
+  for head in ('mean', 'logvar'):
+    dense = _dense_stack_from_flax({'params': {'Dense_0': encoder[head]}})
+    out[f'encoder.{head}.weight'] = dense['layers.0.weight']
+    out[f'encoder.{head}.bias'] = dense['layers.0.bias']
+  out['sigma'] = torch.tensor(float(np.asarray(tree['sigma'], np.float32)))
+  return out
+
+
 def quantile_params_from_flax(params) -> dict:
   """agents/networks.QuantileNetwork's state dict: the weights every
   learner parity test carries across from the JAX package."""

@@ -1,9 +1,11 @@
 """Gymnasium-compatible single-env wrapper (the port of
 ble_tpu/env/gym_env.py; reference env/balloon_env.py:106-300, env/gym.py).
 
-`BalloonEnv` is the stateful reset/step/seed API around env.reset and
-env.step at a batch of one. Its state stays on `device` (default: cuda);
-observations come back as numpy arrays. It subclasses gymnasium.Env when
+`BalloonEnv` is the stateful reset/step/seed/render API around env.reset
+and env.step at a batch of one. Its state stays on `device` (default:
+cuda); observations come back as numpy arrays. A renderer
+(rendering/renderer.py) records the balloon's track at every reset and
+step, and `render` draws it. It subclasses gymnasium.Env when
 gymnasium imports and is a plain class otherwise, so nothing here requires
 it. Registered as `BalloonLearningEnvironment-v0` by `register_env()`.
 """
@@ -38,6 +40,7 @@ class BalloonEnv(gym.Env if _GYM else object):
                field_fn: Optional[Callable] = None,
                wind_field: str = 'generative',
                seed: Optional[int] = None,
+               renderer=None,
                device=None):
     self._device = resolve_device(device)
     if params is None:
@@ -52,6 +55,9 @@ class BalloonEnv(gym.Env if _GYM else object):
       else:
         field_fn = env_lib.make_field_fn('static')
     self._field_fn = field_fn
+    self._renderer = renderer
+    if renderer is not None:
+      self.metadata = {'render.modes': renderer.render_modes}
     self.seed(seed if seed is not None else int(time.time() * 1e6))
     self.reset()
 
@@ -70,6 +76,9 @@ class BalloonEnv(gym.Env if _GYM else object):
     self._rng, arena = prng.split(self._rng)
     self._state, obs = env_lib.reset_keys(self._params, arena[None],
                                           self._field_fn, self._device)
+    if self._renderer is not None:
+      self._renderer.reset()
+      self._renderer.step(self._state)
     return obs[0].cpu().numpy(), {}
 
   def step(self, action: int
@@ -84,12 +93,17 @@ class BalloonEnv(gym.Env if _GYM else object):
                            device=self._device)
     self._state, obs, reward, done, info = env_lib.step(
         self._params, self._state, actions)
+    if self._renderer is not None:
+      self._renderer.step(self._state)
     info = {k: v[0].item() for k, v in info.items()}
     return (obs[0].cpu().numpy(), float(reward[0]), bool(done[0]), False,
             info)
 
   def render(self, mode: str = 'human'):
-    return None
+    """The renderer's image in `mode`; None without a renderer."""
+    if self._renderer is None:
+      return None
+    return self._renderer.render(mode)
 
   def close(self) -> None:
     pass

@@ -11,7 +11,8 @@ Examples, from the root of a checkout:
 
 `--agent` takes every trainable agent of the JAX package: quantile,
 finetune_perciatelli, dqn, mlp and r2d2; `--set` reaches each one's config
-(qrdqn.*, dqn.*, r2d2.*) and replay.*. The generative field decodes one
+(qrdqn.*, dqn.*, r2d2.*) and replay.*. `--render_final` saves env 0's
+flight path over the last iteration as <base_dir>/final_flight_path.png. The generative field decodes one
 grid per world seed with the VAE decoder that models/loader.py resolves.
 """
 
@@ -82,6 +83,9 @@ def main(argv=None):
                       help='Eval cadence in iterations (0 = never).')
   parser.add_argument('--eval_suite', type=str, default='small_eval',
                       choices=suites.available_suites())
+  parser.add_argument('--render_final', action='store_true',
+                      help='Save the final iteration flight-path render '
+                           '(reference train.py:95-109).')
   parser.add_argument('--max_hours', type=float, default=None,
                       help='Wall-clock budget; checkpoints and exits.')
   parser.add_argument('--set', action='append', default=[],
@@ -120,6 +124,7 @@ def main(argv=None):
       seed=args.seed,
       eval_fn=eval_cb,
       eval_every=args.eval_every,
+      render_final=args.render_final,
       max_seconds=None if args.max_hours is None else args.max_hours * 3600,
       device=device)
 

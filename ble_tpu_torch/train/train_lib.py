@@ -4,7 +4,9 @@ port of ble_tpu/train/train_lib.py; reference train_lib.py:40-131).
 Envs run continuously with their own episode boundaries: inactive envs are
 re-initialized at chunk boundaries (learner.selective_reset), and one
 "iteration" is `episodes_per_iteration * episode_length` lockstep steps.
-Collectors receive per-step statistics, brought to the host once a chunk.
+Collectors receive per-step statistics, brought to the host once a chunk,
+and with render_final the last iteration's env-0 flight track is drawn
+into base_dir/final_flight_path.png (reference train.py:95-109).
 
 A checkpoint is one `torch.save` file, checkpoints/ckpt_<iteration>.pt,
 holding the full TrainState (networks, optimizer, replay, env and
@@ -201,6 +203,7 @@ def run_training_loop(base_dir: Optional[str],
                       checkpoint: bool = True,
                       eval_fn: Optional[Callable] = None,
                       eval_every: int = 0,
+                      render_final: bool = False,
                       max_seconds: Optional[float] = None,
                       device=None) -> learner_lib.TrainState:
   """Runs the vectorized training loop (reference train_lib.py:81-131) on
@@ -212,6 +215,8 @@ def run_training_loop(base_dir: Optional[str],
   Args:
     eval_fn: optional callback `(train_state, iteration) -> None` invoked
       every `eval_every` iterations (and after the last one).
+    render_final: record env 0's track over the last iteration and save
+      its render as base_dir/final_flight_path.png.
     max_seconds: optional wall-clock budget; the loop checkpoints and stops
       cleanly once exceeded.
   """
@@ -229,10 +234,19 @@ def run_training_loop(base_dir: Optional[str],
     ts, latest = restore_latest_checkpoint(base_dir, ts)
     start_iteration = latest + 1
 
+  renderer = None
+  if render_final:
+    from ble_tpu_torch.env.rendering import renderer as renderer_lib
+    renderer = renderer_lib.MatplotlibRenderer(
+        env_params.station_keeping_radius_km)
+
   t_start = time.time()
   for iteration in range(start_iteration, num_iterations):
     iter_t0 = time.time()
     dispatcher.begin_episode()
+    render = renderer is not None and iteration == num_iterations - 1
+    if render:
+      renderer.reset()
     steps_done = 0
     completed_returns = []
     while steps_done < steps_per_iteration:
@@ -254,6 +268,8 @@ def run_training_loop(base_dir: Optional[str],
             action_histogram=metrics['action_hist'][i],
             reward=metrics['reward'][i],
             terminal=metrics['terminals'][i]))
+        if render:
+          renderer.add_point(*(float(v) for v in metrics['path'][i]))
       steps_done += n
     dispatcher.end_episode(collectors_lib.StatisticsInstance(
         step=steps_done, action=np.zeros(()),
@@ -279,5 +295,14 @@ def run_training_loop(base_dir: Optional[str],
                    max_seconds, iteration)
       break
 
+  if renderer is not None and base_dir is not None:
+    image = renderer.render('rgb_array')
+    try:
+      import matplotlib.pyplot as plt
+      path = os.path.join(base_dir, 'final_flight_path.png')
+      plt.imsave(path, image)
+      logging.info('saved final flight path render to %s', path)
+    except Exception as e:  # matplotlib backend quirks must not kill a run.
+      logging.warning('could not save final render: %s', e)
   dispatcher.end_training()
   return ts

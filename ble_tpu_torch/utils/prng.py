@@ -17,6 +17,7 @@ JAX's. All of it runs on the CPU: callers move the draws to their device
 once, so a seed's draws are the same bits on the card and on the CPU.
 """
 
+import concurrent.futures
 import math
 
 import numpy as np
@@ -61,8 +62,10 @@ def key(seed: int) -> torch.Tensor:
   return keys([seed])[0]
 
 
-def _rotl(x, d: int):
-  return ((x << d) & MASK32) | (x >> (32 - d))
+def _rotl_(x, d: int):
+  """x rotated left by d bits, in place."""
+  high = x >> (32 - d)
+  return x.bitwise_left_shift_(d).bitwise_and_(MASK32).bitwise_or_(high)
 
 
 def threefry2x32(k1, k2, x1, x2):
@@ -77,7 +80,7 @@ def threefry2x32(k1, k2, x1, x2):
   for i in range(5):
     for r in _ROTATIONS[i % 2]:
       x1.add_(x2).bitwise_and_(MASK32)
-      x2 = _rotl(x2, r).bitwise_xor_(x1)
+      _rotl_(x2, r).bitwise_xor_(x1)
     x1.add_(ks[(i + 1) % 3]).bitwise_and_(MASK32)
     x2.add_(ks[(i + 2) % 3]).add_(i + 1).bitwise_and_(MASK32)
   return x1, x2
@@ -126,6 +129,43 @@ def bits(keys_, shape=()) -> torch.Tensor:
   return b1 ^ b2
 
 
+# Counts a chunk of _by_chunks: the int64 and float64 temporaries of one
+# chunk stay in the cache.
+_CHUNK = 1 << 18
+
+
+def _by_chunks(keys_, shape, from_bits) -> torch.Tensor:
+  """from_bits(bits(keys_, shape)) for an elementwise `from_bits`, in
+  chunks of _CHUNK counts when keys_ is one key (2,) and the draw is
+  larger: count i of the flat shape is hashed as in bits either way.
+
+  The chunks run on a pool of torch.get_num_threads() threads, each op on
+  one thread (intra-op threads set to 1 for the draw, then restored): the
+  hundreds of small ops a chunk would otherwise each open an OpenMP
+  region, which costs ~25x when other processes share the cores (pytest
+  workers). A draw of the VAE encoder's 79 M weights takes ~6 s on 8
+  cores."""
+  shape = tuple(shape)
+  n = math.prod(shape)
+  if keys_.dim() != 1 or n <= _CHUNK:
+    return from_bits(bits(keys_, shape))
+  out = torch.empty((n,), dtype=torch.float32)
+
+  def fill(start):
+    torch.set_num_threads(1)
+    b1, b2 = _hash_counts(keys_, (min(_CHUNK, n - start),), start)
+    out[start:start + b1.shape[0]] = from_bits(b1 ^ b2)
+
+  threads = torch.get_num_threads()
+  torch.set_num_threads(1)
+  try:
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+      list(pool.map(fill, range(0, n, _CHUNK)))
+  finally:
+    torch.set_num_threads(threads)
+  return out.reshape(shape)
+
+
 def _f32(v):
   return torch.as_tensor(v, dtype=torch.float32)
 
@@ -136,8 +176,22 @@ def fma32(a, b, c) -> torch.Tensor:
   round once where torch's a * b + c rounds twice. The product is exact in
   float64; the sum is rounded to odd there (TwoSum gives its error, and an
   inexact even result steps one ulp toward it), after which one rounding
-  to float32 is the correctly rounded fused result."""
+  to float32 is the correctly rounded fused result. Rounding to odd moves
+  the result only where the float64 sum sits on a float32 tie (or in
+  float32's subnormal range), so only those elements take that path."""
   a, b, c = (_f32(v).double() for v in (a, b, c))
+  s = a * b + c
+  out = s.float()
+  word = s.view(torch.int64)
+  slow = ((word & 0x1FFFFFFF) == 0x10000000) | (s.abs() < 2.0 ** -126)
+  if bool(slow.any()):
+    a, b, c = (v.expand(s.shape)[slow] for v in (a, b, c))
+    out[slow] = _fma32_to_odd(a, b, c)
+  return out
+
+
+def _fma32_to_odd(a, b, c) -> torch.Tensor:
+  """fma32 of float64 tensors by rounding to odd everywhere."""
   p = a * b
   s = p + c
   bp = s - p
@@ -152,7 +206,11 @@ def uniform(keys_, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor:
   """jax.random.uniform in float32 (random.py:435-477): 23 mantissa bits
   under the exponent of 1.0, minus 1, scaled (one fused multiply-add, see
   fma32), then max(minval, .)."""
-  b = bits(keys_, shape)
+  return _by_chunks(keys_, shape,
+                    lambda b: _uniform_from_bits(b, minval, maxval))
+
+
+def _uniform_from_bits(b, minval, maxval) -> torch.Tensor:
   floats = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
   lo, hi = _f32(minval), _f32(maxval)
   return torch.maximum(lo, fma32(floats, hi - lo, lo))
@@ -193,28 +251,33 @@ def erf_inv32(x) -> torch.Tensor:
   x = _f32(x)
   w = -torch.log1p(-x * x)
   lt = w < 5.0
-  w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
-  p = torch.where(lt, _f32(_ERFINV_W_LT_5[0]), _f32(_ERFINV_W_GE_5[0]))
-  for c_lt, c_ge in zip(_ERFINV_W_LT_5[1:], _ERFINV_W_GE_5[1:]):
-    p = fma32(p, w, torch.where(lt, _f32(c_lt), _f32(c_ge)))
+  if bool(lt.all()):  # Every truncated normal and most normals.
+    w = w - 2.5
+    coefficients = [_f32(c) for c in _ERFINV_W_LT_5]
+  else:
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    coefficients = [torch.where(lt, _f32(c_lt), _f32(c_ge))
+                    for c_lt, c_ge in zip(_ERFINV_W_LT_5, _ERFINV_W_GE_5)]
+  p = coefficients[0]
+  for c in coefficients[1:]:
+    p = fma32(p, w, c)
   return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
 def normal(keys_, shape=()) -> torch.Tensor:
   """jax.random.normal in float32 (random.py:867-872): a uniform on
   (nextafter(-1, 0), 1) through sqrt(2) * erf_inv."""
-  u = uniform(keys_, shape, _NORMAL_LO, 1.0)
-  return _SQRT2 * erf_inv32(u)
+  return _by_chunks(keys_, shape, lambda b: _SQRT2 * erf_inv32(
+      _uniform_from_bits(b, _NORMAL_LO, 1.0)))
 
 
 def truncated_normal(keys_, shape=()) -> torch.Tensor:
   """jax.random.truncated_normal(key, -2, 2, shape) in float32
   (random.py:1005-1025), the draw under flax's lecun_normal."""
-  u = uniform(keys_, shape, _ERF_MINUS_SQRT2, _ERF_SQRT2)
-  out = _SQRT2 * erf_inv32(u)
   lo = float(np.nextafter(np.float32(-2.0), np.float32(np.inf)))
   hi = float(np.nextafter(np.float32(2.0), np.float32(-np.inf)))
-  return torch.clamp(out, lo, hi)
+  return _by_chunks(keys_, shape, lambda b: torch.clamp(_SQRT2 * erf_inv32(
+      _uniform_from_bits(b, _ERF_MINUS_SQRT2, _ERF_SQRT2)), lo, hi))
 
 
 def loggamma(keys_, alpha: float) -> torch.Tensor:

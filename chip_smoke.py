@@ -42,7 +42,11 @@ Phases (each raises on a failure, so the exit code is then not 0):
   gym        this slice's path: BalloonEnv(wind_field='generative'), 128
              StationSeeker steps through env.step at a batch of one; B1,
              B3 and B5 launch once a step; the first 16 steps against the
-             same env on the CPU; the step's wall time and device share.
+             same env on the CPU; the step's wall time and device share;
+             then, untimed, 16 steps of another BalloonEnv on the card
+             with a MatplotlibRenderer, whose recorded track must equal
+             the balloon states read out after the reset and each step
+             (render() is not called: the image is the CPU tests').
   pair       env.step (B1, B4, B5) against step_batched (B1, B2) from the
              same state, E = 4096 on per-env generative fields, 8 steps.
   main       the main path: the StationSeeker eval over E = 4096 envs,
@@ -128,6 +132,22 @@ Phases (each raises on a failure, so the exit code is then not 0):
              versions on (a)'s final state and last B2 inputs in its
              worker, and timed there with phase timing (the
              physics_distributed and gp_window_distributed rows).
+  vae        the wind VAE's trainer at full width (88 M parameters), on
+             no kernel of the port (its products are cuBLAS GEMMs, as the
+             JAX package's are XLA's): (a) one train step at batch 16 on
+             the card against the CPU from the same parameters, batch and
+             noise, to VAE_STEP_LIMITS, beside the TF32 and 1.1 x rate
+             controls that must break one; (b) the 3-step seed-0
+             run (synthetic reservoir, batch 2) against the JAX package's
+             metrics in tests/torch_jax_vae.json, within VAE_FIXTURE_RTOL;
+             (c) the CLI (`python -m ble_tpu_torch.generative.train_vae
+             --synthetic`, no --device) for 20 batches of 16 as a
+             subprocess beside (a) and (b): exit 0, finite metrics, its
+             checkpoint read back in bits, the printed evaluation
+             recomputed from it, its decoder loaded into vae.Decoder;
+             (d) train steps/s at batch 16 (the step alone, and train()'s
+             loop body with the reservoir's draw), launches and busy share
+             of a step under torch.profiler, peak memory.
   timing     each kernel at its path's shapes with CUDA events, beside its
              plain version, a library call where one computes the same
              function or its dominant term, and its bound; for B1, B3, B4
@@ -176,7 +196,7 @@ E = 4096
 MAIN_STEPS = 128
 DEFAULT_PHASES = ('device', 'build', 'kernels', 'reference', 'worlds', 'gym',
                   'pair', 'main', 'window', 'train', 'agents', 'distributed',
-                  'timing')
+                  'vae', 'timing')
 # Phase worlds: the seeds and steps of its StationSeeker eval and of the
 # random agent's actions held against the JAX package's values
 # (tests/torch_jax_worlds.json, written by tests/test_torch_worlds.py). The
@@ -1407,9 +1427,49 @@ def phase_gym() -> dict:
              'device_launches_per_step': per_step,
              'device_busy_share': device_ms / steady_ms}
   log('gym:', json.dumps(summary))
+  check_gym_renderer()
   return {'physics_gym': launches['physics'],
           'gp_observe_b3': launches['gp_observe'],
           'gp_query_gym': launches['gp_query']}, env.get_simulator_state()
+
+
+GYM_RENDER_STEPS = 16
+
+
+def check_gym_renderer() -> None:
+  """BalloonEnv(wind_field='generative') on the card with a
+  MatplotlibRenderer for GYM_RENDER_STEPS steps (the actions cycle down,
+  stay, up): the renderer's points after the reset and each step equal
+  the env's balloon state read out then, x and y in km, pressure, and the
+  charge over the battery's capacity."""
+  from ble_tpu_torch.env import balloon as balloon_lib
+  from ble_tpu_torch.env import gym_env
+  from ble_tpu_torch.env.rendering import renderer as renderer_lib
+  renderer = renderer_lib.MatplotlibRenderer()
+  env = gym_env.BalloonEnv(wind_field='generative', seed=11, device=DEV,
+                           renderer=renderer)
+  check(env.metadata == {'render.modes': renderer.render_modes},
+        'gym renderer: metadata')
+  env.reset(seed=11)
+  want = []
+
+  def read_out():
+    b = env.get_balloon_state()
+    check(b.x_m.device.type == 'cuda', 'gym renderer: env not on the card')
+    x, y, p, charge = (float(v[0]) for v in (b.x_m, b.y_m, b.pressure_pa,
+                                             b.battery_charge_j))
+    want.append((x / 1000.0, y / 1000.0, p,
+                 charge / balloon_lib.BalloonParams.battery_capacity_j))
+
+  read_out()
+  for i in range(GYM_RENDER_STEPS):
+    env.step(i % 3)
+    read_out()
+  got = list(zip(renderer._xs, renderer._ys, renderer._pressures,
+                 renderer._socs))
+  check(got == want, f'gym renderer: track {got[:2]} vs states {want[:2]}')
+  log(f'gym: renderer recorded {len(got)} points on the card, equal to the '
+      f'states; last (x km, y km, Pa, soc) {got[-1]}')
 
 
 PAIR_STEPS = 8
@@ -3027,6 +3087,318 @@ def phase_distributed(params, field_fn, phases, train_summary) -> dict:
           'errs': a['errs'], 'timing': a['timing']}
 
 
+# ---------------------------------------------------------------- VAE -----
+
+# Phase vae: the wind VAE's trainer at full width (88 M parameters). Its
+# products are cuBLAS GEMMs and its optimizer torch.optim.Adam: the JAX
+# package trains it outside any Pallas kernel, so no kernel of the port
+# runs on this path.
+VAE_BATCH = 16
+# (b): the JAX package's 3-step seed-0 run on its synthetic reservoir
+# (tests/torch_jax_vae.json, written by tests/test_torch_vae_train.py).
+# Each metric within VAE_FIXTURE_RTOL relative: XLA's float32 sum over a
+# grid's 79,380 squared errors reads up to ~4e-5 from the exact sum (the
+# port's ~4e-8), which the MSE, the loss and the evaluation's MSE carry.
+VAE_FIXTURE = 'tests/torch_jax_vae.json'
+VAE_FIXTURE_RUN = {'seed': 0, 'batches': 3, 'batch_size': 2}
+VAE_FIXTURE_RTOL = 1e-4
+# (c): the CLI's run, at its default batch of 16.
+VAE_CLI_BATCHES = 20
+# (a): one train step card vs CPU from (b)'s parameters and a fresh Adam,
+# read as phase train's (_train_step_errs), held to these limits and the
+# loss to 1e-5. Phase train's params and updates limits (1e-5, 1e-3) do
+# not fit this step: Adam's first step is ~lr * sign(g) for every element,
+# and a gradient element within its rounding of zero takes another sign on
+# the card than on the CPU. (b)'s biases are ~3 steps (3e-4) large, so one
+# such element moves a tensor's max |card - cpu| / max |cpu| to ~0.02. On
+# an H100 (80GB HBM3, 700 W) the sound step read params 0.0233, grads
+# 1.1e-6, updates 1.2e-3 and 2.0e-3 in two calls; the TF32 step 0.50,
+# 0.040, 0.25; the step at 1.1 times the rate 0.025, 1.1e-6, 0.100.
+VAE_STEP_LIMITS = {'params': 0.1, 'grads': TRAIN_GRAD_RTOL, 'updates': 1e-2}
+# (d): unprofiled steps timed after VAE_WARMUP, then profiled ones.
+VAE_WARMUP = 3
+VAE_TIMED_STEPS = 30
+VAE_PROFILED_STEPS = 5
+
+
+@contextlib.contextmanager
+def _recording_vae_trainer(rec: dict):
+  """Inside the block, every train step that train_vae.make_train_step
+  makes appends its metrics to rec['steps'] and train_vae.evaluate puts
+  its metrics in rec['eval'], each as floats."""
+  from ble_tpu_torch.generative import train_vae
+  make_train_step, evaluate = train_vae.make_train_step, train_vae.evaluate
+
+  def recording_make_train_step(model, optimizer):
+    step = make_train_step(model, optimizer)
+
+    def recording_step(*args):
+      out = step(*args)
+      rec.setdefault('steps', []).append(
+          {k: float(v) for k, v in out.items()})
+      return out
+    return recording_step
+
+  def recording_evaluate(*args):
+    out = evaluate(*args)
+    rec['eval'] = {k: float(v) for k, v in out.items()}
+    return out
+
+  train_vae.make_train_step = recording_make_train_step
+  train_vae.evaluate = recording_evaluate
+  try:
+    yield
+  finally:
+    train_vae.make_train_step, train_vae.evaluate = make_train_step, evaluate
+
+
+def vae_fixture_run(device) -> dict:
+  """train_vae.train on the synthetic reservoir at VAE_FIXTURE_RUN (one
+  epoch) on `device`: each step's metrics, the evaluation's, the epoch's
+  printed line and the trained model."""
+  import io
+  from ble_tpu_torch.generative import reservoir
+  from ble_tpu_torch.generative import train_vae
+  run = VAE_FIXTURE_RUN
+  rec = {}
+  out = io.StringIO()
+  with _recording_vae_trainer(rec), contextlib.redirect_stdout(out):
+    rec['model'] = train_vae.train(
+        reservoir.SyntheticWindFieldReservoir(run['seed'], device=device),
+        num_epochs=1, batches_per_epoch=run['batches'],
+        batch_size=run['batch_size'], seed=run['seed'], device=device)
+  rec['line'] = out.getvalue().strip()
+  return rec
+
+
+def compare_vae_run(got: dict, want: dict) -> list:
+  """What of vae_fixture_run's `got` lies further than VAE_FIXTURE_RTOL
+  from the fixture `want`, one line each."""
+  bad = []
+  if want['run'] != VAE_FIXTURE_RUN or len(got['steps']) != len(
+      want['steps']):
+    return [f'run {want["run"]} with {len(want["steps"])} steps, '
+            f'{len(got["steps"])} run']
+  labelled = [(f'step {i}', g, w) for i, (g, w) in
+              enumerate(zip(got['steps'], want['steps']))]
+  for label, g, w in labelled + [('eval', got['eval'], want['eval'])]:
+    for key, value in w.items():
+      err = abs(g[key] - value) / abs(value)
+      if not err <= VAE_FIXTURE_RTOL:
+        bad.append(f'{label} {key}: {g[key]} vs {value} (relative {err:.3g})')
+  return bad
+
+
+def _vae_step_errs(model, cpu, before) -> dict:
+  """_train_step_errs for the VAE's parameters."""
+  return _train_step_errs(types.SimpleNamespace(network=model),
+                          types.SimpleNamespace(network=cpu), before)
+
+
+def check_vae_train_step(state: dict) -> dict:
+  """One full-width train step at batch VAE_BATCH on the card against the
+  same step on the CPU, from the parameters `state`, a fresh Adam, one
+  synthetic batch and one noise key: params, grads and updates to
+  VAE_STEP_LIMITS, the loss to 1e-5 relative; then the TF32 and 1.1 x rate
+  controls, each of which must break one. All readings are logged before
+  any is checked. Returns them."""
+  from ble_tpu_torch.generative import reservoir
+  from ble_tpu_torch.generative import train_vae
+  from ble_tpu_torch.generative import vae
+  from ble_tpu_torch.utils import prng
+  batch = reservoir.SyntheticWindFieldReservoir(
+      0, device='cpu').get_batch(VAE_BATCH, prng.key(1))
+  key, kl_weight, lr = prng.key(2), 512.0, 1e-4
+  before = {k: v.detach().cpu().double() for k, v in state.items()}
+
+  def step(device, rate=lr):
+    model = vae.make_vae(state, device)
+    out = train_vae.make_train_step(
+        model, train_vae.make_optimizer(model, rate))(batch.to(device), key,
+                                                      kl_weight)
+    return model, out
+
+  cpu, cpu_m = step('cpu')
+  card, card_m = step(DEV)
+  errs = _vae_step_errs(card, cpu, before)
+  loss_err = abs(float(card_m['loss']) - float(cpu_m['loss'])) / abs(
+      float(cpu_m['loss']))
+  errs['loss'] = loss_err
+  log(f'vae (a): one train step at batch {VAE_BATCH}, card vs cpu, max over '
+      f'tensors of relative |card - cpu|: {json.dumps(errs)}; loss '
+      f'{float(card_m["loss"]):.9g} vs {float(cpu_m["loss"]):.9g}')
+  del card
+  controls = {}
+  with _tf32(matmul=True, cudnn=True):
+    controls['tf32'] = _vae_step_errs(step(DEV)[0], cpu, before)
+  controls['lr x 1.1'] = _vae_step_errs(step(DEV, 1.1 * lr)[0], cpu, before)
+  log('vae (a): controls, faulty steps on the card vs the sound cpu step:',
+      json.dumps(controls))
+  for name, limit in VAE_STEP_LIMITS.items():
+    check(errs[name] <= limit, f'vae train step {name} {errs[name]} > {limit}')
+  check(loss_err <= 1e-5, f'vae train step loss {loss_err}')
+  for control, ctrl in controls.items():
+    check(any(ctrl[k] > limit for k, limit in VAE_STEP_LIMITS.items()),
+          f'the vae train-step limits pass the {control} control: {ctrl}')
+  return {'errs': errs, 'controls': controls}
+
+
+def _parse_epoch_line(out: str) -> dict:
+  """The metrics of the last `epoch <n>: k=v ...` line of `out`."""
+  lines = [l for l in out.splitlines() if l.startswith('epoch ')]
+  check(bool(lines), f'vae (c): no epoch line in {out!r}')
+  return {k: float(v) for k, v in
+          (item.split('=') for item in lines[-1].split(': ', 1)[1].split())}
+
+
+def check_vae_checkpoint(path: str, printed: dict) -> None:
+  """The CLI's checkpoint: read back onto the card, the module's state
+  equal in bits to the file's; the evaluation train() printed, recomputed
+  from it with the same key chain, within the line's 4 decimals (and 1e-6
+  relative); its decoder loaded into vae.Decoder decodes what the VAE's
+  generate does, in bits."""
+  from ble_tpu_torch.generative import reservoir
+  from ble_tpu_torch.generative import train_vae
+  from ble_tpu_torch.generative import vae
+  from ble_tpu_torch.utils import prng
+  state = torch.load(path, map_location='cpu', weights_only=True)
+  model = vae.make_vae(state, DEV)
+  check(set(model.state_dict()) == set(state) and all(
+      torch.equal(v.cpu(), state[k]) for k, v in model.state_dict().items()),
+        'vae (c): the checkpoint does not read back in bits')
+  key = prng.key(0)
+  _, key = prng.split(key)
+  for _ in range(VAE_CLI_BATCHES):
+    key = prng.split(key, 3)[0]
+  eval_key = prng.split(key)[1]
+  fields = reservoir.SyntheticWindFieldReservoir(
+      device=DEV).get_eval_batch(VAE_BATCH)
+  got = {k: float(v) for k, v in
+         train_vae.evaluate(model, fields, eval_key).items()}
+  for name, value in got.items():
+    check(abs(value - printed[name]) <= 5e-5 + 1e-6 * abs(value),
+          f'vae (c): {name} from the checkpoint {value}, printed '
+          f'{printed[name]}')
+  decoder = vae.Decoder()
+  decoder.load_state_dict({k[len('decoder.'):]: v for k, v in state.items()
+                           if k.startswith('decoder.')})
+  decoder = decoder.to(DEV)
+  z = prng.normal(prng.key(9), (VAE_BATCH, vae.NUM_LATENTS)).to(DEV)
+  with torch.no_grad():
+    grids = decoder(z)
+    check(grids.shape == (VAE_BATCH, 21, 21, 10, 9, 2) and
+          bool(torch.isfinite(grids).all()) and
+          torch.equal(grids, model.generate(z)),
+          'vae (c): the checkpoint\'s decoder')
+  log(f'vae (c): checkpoint read back; evaluation from it {json.dumps(got)}')
+
+
+def time_vae(state: dict) -> dict:
+  """Train steps at batch VAE_BATCH on the card from `state`: unprofiled
+  steps/s on one fixed batch (the step alone) and through train()'s loop
+  body (the keys' splits and the synthetic reservoir's draw included),
+  then device ms, launches and busy share of a step under torch.profiler
+  with its top kernels (name, launches and ms a step), and the peak memory
+  of the steps."""
+  from ble_tpu_torch.generative import reservoir
+  from ble_tpu_torch.generative import train_vae
+  from ble_tpu_torch.generative import vae
+  from ble_tpu_torch.utils import prng
+  torch.cuda.reset_peak_memory_stats()
+  model = vae.make_vae(state, DEV)
+  step = train_vae.make_train_step(model, train_vae.make_optimizer(model,
+                                                                   1e-4))
+  res = reservoir.SyntheticWindFieldReservoir(device=DEV)
+  batch, key = res.get_batch(VAE_BATCH, prng.key(1)), prng.key(2)
+
+  def fixed(n):
+    for _ in range(n):
+      step(batch, key, 512.0)
+    torch.cuda.synchronize()
+
+  keys = [prng.key(3)]
+
+  def loop(n):
+    for _ in range(n):
+      keys[0], batch_key, step_key = prng.split(keys[0], 3)
+      step(res.get_batch(VAE_BATCH, batch_key), step_key, 512.0)
+    torch.cuda.synchronize()
+
+  out = {}
+  for name, fn in (('step', fixed), ('loop', loop)):
+    fn(VAE_WARMUP)
+    t = time.perf_counter()
+    fn(VAE_TIMED_STEPS)
+    out[f'{name}_ms'] = 1e3 * (time.perf_counter() - t) / VAE_TIMED_STEPS
+    out[f'{name}_steps_per_s'] = 1e3 / out[f'{name}_ms']
+  from torch.autograd import DeviceType
+  device_ms, launches, events = device_time(
+      lambda: fixed(VAE_PROFILED_STEPS), VAE_PROFILED_STEPS)
+  kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                    and not e.is_user_annotation),
+                   key=lambda e: -e.self_device_time_total)
+  out['top_kernels_ms_per_step'] = [
+      [e.key[:160], e.count / VAE_PROFILED_STEPS,
+       e.self_device_time_total / 1e3 / VAE_PROFILED_STEPS]
+      for e in kernels[:8]]
+  out.update({'device_ms_per_step': device_ms,
+              'launches_per_step': launches,
+              'busy_share': device_ms / out['step_ms'],
+              'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9})
+  return out
+
+
+def phase_vae() -> dict:
+  """The wind VAE's training path at full width (VAE_BATCH's note): (c)
+  the CLI, `python -m ble_tpu_torch.generative.train_vae --synthetic
+  --epochs 1 --batches_per_epoch VAE_CLI_BATCHES --checkpoint_dir <tmp>`
+  (no --device: the card), started first and run beside (b) and (a); (b)
+  the 3-step seed-0 run on the card against the JAX package's values; (a)
+  one train step at batch VAE_BATCH, card against CPU, from (b)'s trained
+  parameters; then (c)'s output (exit 0, finite metrics) and checkpoint;
+  (d) the timing, alone on the card. Returns (d)'s numbers."""
+  import os
+  import tempfile
+  t0 = time.perf_counter()
+  with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         VAE_FIXTURE)) as f:
+    fixture = json.load(f)
+  with tempfile.TemporaryDirectory() as work:
+    cli = [_start([sys.executable, '-m',
+                   'ble_tpu_torch.generative.train_vae', '--synthetic',
+                   '--epochs', '1', '--batches_per_epoch',
+                   str(VAE_CLI_BATCHES), '--checkpoint_dir', work])]
+    try:
+      t = time.perf_counter()
+      run = vae_fixture_run(DEV)
+      log(f'vae (b): {run["line"]}')
+      check(run['model'].sigma.device.type == 'cuda', 'vae (b): not on card')
+      bad = compare_vae_run(run, fixture)
+      worst = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(
+          run['steps'] + [run['eval']], fixture['steps'] + [fixture['eval']])
+                  for k in w)
+      log(f'vae (b): card vs the JAX package, largest relative error '
+          f'{worst:.3g} (limit {VAE_FIXTURE_RTOL}), '
+          f'{time.perf_counter() - t:.1f} s')
+      check(not bad, f'vae (b): {bad}')
+      state = {k: v.cpu() for k, v in run['model'].state_dict().items()}
+      del run
+      step_check = check_vae_train_step(state)
+    except BaseException:
+      _stop(cli)
+      raise
+    printed = _parse_epoch_line(_finish(cli)[0])
+    check(all(np.isfinite(v) for v in printed.values()) and
+          set(printed) == {'kld', 'loss', 'mse', 'sigma', 'data_mean_speed',
+                           'eval_kld', 'eval_mse', 'gen_mean_speed'},
+          f'vae (c): epoch metrics {printed}')
+    check_vae_checkpoint(os.path.join(work, 'vae_0.pt'), printed)
+  timing = time_vae(state)
+  timing['seconds'] = time.perf_counter() - t0
+  log(f'vae (d): {nvidia_smi_line()}:', json.dumps(timing))
+  return {'timing': timing, **step_check}
+
+
 def time_b1(params, state) -> dict:
   """B1 at the batch of `state` with random actions."""
   from ble_tpu_torch.env import balloon as balloon_lib
@@ -3413,6 +3785,9 @@ def main(argv=None) -> int:
     launches.update(dist_out['launches'])
     errs.update(dist_out['errs'])
     mark('distributed')
+  if 'vae' in phases:
+    phase_vae()
+    mark('vae')
   timing = {}
   if 'timing' in phases:
     timing = phase_timing(params, state0, gp_state, gym_state, train_state,

@@ -19,6 +19,10 @@ from ble_tpu_torch.env import env as env_lib
 from ble_tpu_torch.env import gym_env
 from ble_tpu_torch.env import wind_field
 from ble_tpu_torch.env import wind_gp
+from ble_tpu_torch.env.rendering import renderer as renderer_lib
+from ble_tpu_torch.generative import reservoir
+from ble_tpu_torch.generative import train_vae
+from ble_tpu_torch.generative import vae
 from ble_tpu_torch.models import loader
 from ble_tpu_torch.ops import cuda_build
 from ble_tpu_torch.ops import gp_observe
@@ -69,6 +73,48 @@ def test_port_imports_no_jax_and_nothing_of_ble_tpu():
         if top in ('jax', 'jaxlib', 'flax', 'ble_tpu'):
           offending.append(f'{os.path.relpath(path, _ROOT)}: import {name}')
   assert not offending, '\n'.join(offending)
+
+
+# What the port leaves out on purpose (ROADMAP A): the shims that let
+# ble_tpu's own tests import the reference package, the interpolation the
+# port replaces with a gather, and the Pallas kernels, which are CUDA C++
+# here (ops/<kernel>.py beside csrc/).
+_NOT_PORTED = re.compile(r'^(compat/.*|ops/interp\.py|ops/pallas_\w+\.py)$')
+
+
+def _modules(package: str) -> set:
+  root = os.path.join(_ROOT, package)
+  return {os.path.relpath(os.path.join(d, f), root)
+          for d, _, files in os.walk(root) for f in files
+          if f.endswith('.py')}
+
+
+def test_port_has_every_module_of_ble_tpu():
+  """Every module of ble_tpu but those left out on purpose has a module of
+  the same name in the port."""
+  missing = {m for m in _modules('ble_tpu') - _modules('ble_tpu_torch')
+             if not _NOT_PORTED.match(m)}
+  assert not missing, sorted(missing)
+
+
+def _top_level_names(path: str) -> set:
+  with open(path) as f:
+    tree = ast.parse(f.read())
+  return {node.name for node in tree.body
+          if isinstance(node, (ast.FunctionDef, ast.ClassDef))}
+
+
+@pytest.mark.parametrize('module', ['generative/vae.py',
+                                    'generative/reservoir.py',
+                                    'generative/train_vae.py',
+                                    'env/rendering/renderer.py'])
+def test_last_ported_modules_have_every_function_and_class(module):
+  """Each function and class of these ble_tpu modules has one of the same
+  name in the port's module (vae's _num_flow_fields is the constant
+  _NUM_FLOW_FIELDS there)."""
+  theirs = _top_level_names(os.path.join(_ROOT, 'ble_tpu', module))
+  ours = _top_level_names(os.path.join(_PKG, module))
+  assert not theirs - ours - {'_num_flow_fields'}, sorted(theirs - ours)
 
 
 def test_forbidden_pattern_matches_what_it_should():
@@ -131,6 +177,29 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     train_cli.main(['--wind_field', 'static', '--num_iterations', '1'])
   # Asked for explicitly, the CPU is used.
   assert ble_tpu_torch.resolve_device('cpu') == torch.device('cpu')
+
+
+def test_vae_trainer_and_renderer_callers_raise_without_a_card(no_cuda,
+                                                                tmp_path):
+  """The VAE trainer, its CLI, the reservoirs and make_vae default to the
+  card, as do the gym env and the train CLI that drive a renderer."""
+  with pytest.raises(RuntimeError, match='CUDA'):
+    train_vae.train(reservoir.SyntheticWindFieldReservoir(device='cpu'),
+                    num_epochs=1, batches_per_epoch=1)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    train_vae.main(['--synthetic', '--epochs', '1'])
+  with pytest.raises(RuntimeError, match='CUDA'):
+    reservoir.SyntheticWindFieldReservoir()
+  with pytest.raises(RuntimeError, match='CUDA'):
+    reservoir.DatasetWindFieldReservoir(str(tmp_path))
+  with pytest.raises(RuntimeError, match='CUDA'):
+    vae.make_vae({})
+  with pytest.raises(RuntimeError, match='CUDA'):
+    gym_env.BalloonEnv(wind_field='static',
+                       renderer=renderer_lib.MatplotlibRenderer())
+  with pytest.raises(RuntimeError, match='CUDA'):
+    train_cli.main(['--wind_field', 'static', '--num_iterations', '1',
+                    '--render_final', '--base_dir', str(tmp_path)])
 
 
 @pytest.mark.parametrize('agent', learner.TRAINABLE_AGENTS)

@@ -186,3 +186,31 @@ def test_beta_within_1e6(want, i):
         f'max error elsewhere {err[err <= 1e-4].max():.3g}')
   assert flips == 0
   assert err.max() <= 1e-6
+
+
+def test_fma32_rounds_once_at_float32_ties():
+  """Where the float64 sum of a * b + c sits on a float32 tie, the fused
+  result rounds by the exact value's side of it (the round-to-odd path):
+  1 + 2**-24 + 2**-60 rounds up, 1 + 2**-24 - 2**-60 down; torch's
+  unfused float32 a * b + c gives 1.0 for both."""
+  a = torch.tensor([-2.0**-24 * (1 + 2.0**-18), 2.0**-24 * (1 + 2.0**-18)])
+  b = torch.tensor([1 - 2.0**-18] * 2)
+  c = torch.tensor([1 + 2.0**-23, 1.0])
+  np.testing.assert_array_equal(prng.fma32(a, b, c).numpy(),
+                                np.float32([1 + 2.0**-23, 1.0]))
+  assert torch.equal(a * b + c, torch.ones(2))
+
+
+def test_large_draws_by_chunks_equal_one_pass(monkeypatch):
+  """A draw larger than prng._CHUNK from one key is computed in chunks of
+  counts; it equals the same draw in one pass, bit for bit."""
+  key = prng.key(7)
+  shape = (3, 1000)
+  chunked = {}
+  monkeypatch.setattr(prng, '_CHUNK', 512)
+  for name in ('uniform', 'normal', 'truncated_normal'):
+    chunked[name] = getattr(prng, name)(key, shape)
+  monkeypatch.setattr(prng, '_CHUNK', 1 << 20)
+  for name, got in chunked.items():
+    assert got.shape == shape
+    assert torch.equal(got, getattr(prng, name)(key, shape)), name
