@@ -159,18 +159,19 @@ def forecast_keys(keys) -> torch.Tensor:
   return prng.split(prng.split(keys, 7)[:, 6])[:, 1]
 
 
-def reset_from_keys(params: EnvParams, field, keys, device=None):
-  """Fresh episodes from reset keys (E, 2), each env's initial conditions
-  drawn from its key as ble_tpu/env/env.py:reset_from_field draws them
-  (its 7-way split), on the host, then moved to `device` once: a key gives
-  the same world as in the JAX package, and the same bits on the card and
-  on the CPU.
+def reset_from_field(keys, params: EnvParams, field, device=None):
+  """Fresh episodes from reset keys (E, 2) with the forecast grid already
+  decoded (ble_tpu/env/env.py:reset_from_field over a leading key axis):
+  each env's initial conditions drawn from its key as the JAX package
+  draws them (its 7-way split), on the host, then moved to `device` once,
+  so a key gives the same world as in the JAX package, and the same bits
+  on the card and on the CPU.
 
   Args:
+    keys: (E, 2) int64 keys (utils/prng.py).
     params: EnvParams.
     field: (21, 21, 10, 9, 2) forecast grid shared by every env, or
       (E, 21, 21, 10, 9, 2) per-env grids.
-    keys: (E, 2) int64 keys (utils/prng.py).
     device: torch device (default: cuda).
 
   Returns:
@@ -180,28 +181,26 @@ def reset_from_keys(params: EnvParams, field, keys, device=None):
   ic = sampling.sample_initial_conditions(keys)
   atmosphere = tree_map(lambda x: x.to(device),
                         atmosphere_lib.make(ic['atmosphere_alpha']))
+  noise_keys = ic.pop('noise_keys')
   ic = {k: v.to(device) for k, v in ic.items()}
   return init_state(params, atmosphere, ic['time_s'], ic['x_m'], ic['y_m'],
                     ic['center_lat_rad'], ic['center_lng_rad'],
                     ic['pressure_pa'], ic['upwelling_ir'],
-                    make_wind(params, field, ic['noise_seeds'],
-                              ic['noise_offsets'], ic['x_m'], ic['y_m']))
+                    make_wind(params, field, noise_keys, ic['x_m'],
+                              ic['y_m']))
 
 
-def make_wind(params: EnvParams, field, noise_seeds, noise_offsets, x_m, y_m,
-              noise_perms=None) -> wind_field_lib.WindFieldState:
-  """The WindFieldState of fresh episodes: the grid(s) in the configured
-  dtype, one per env, on the noise tensors' device, with the slab cache
-  centred on (x_m, y_m) when it is on."""
-  n = noise_seeds.shape[0]
+def make_wind(params: EnvParams, field, noise_keys, x_m, y_m,
+              exact_noise: bool = False) -> wind_field_lib.WindFieldState:
+  """The WindFieldState of fresh episodes (wind_field.make_state from the
+  noise keys (E, 2)): the grid(s) in the configured dtype, one per env, on
+  x_m's device, with the slab cache centred on (x_m, y_m) when it is
+  on."""
   dtype = torch.float32 if params.wind_field_f32 else \
       wind_field_lib.FIELD_DTYPE
-  field = torch.as_tensor(field, device=noise_seeds.device).to(dtype)
-  if field.ndim == 5:
-    field = field.expand((n,) + field.shape).contiguous()
-  wind = wind_field_lib.WindFieldState(field=field, noise_seeds=noise_seeds,
-                                       noise_offsets=noise_offsets,
-                                       noise_perms=noise_perms)
+  wind = wind_field_lib.make_state(
+      torch.as_tensor(field, device=x_m.device), noise_keys, exact_noise,
+      dtype)
   if params.field_cache:
     wind = wind_field_lib.refresh_slab(wind, x_m, y_m)
   return wind
@@ -211,10 +210,10 @@ def reset_keys(params: EnvParams, keys, field_fn, device=None):
   """Fresh episodes from reset keys (E, 2) (ble_tpu/env/env.py:142-158;
   reference balloon_arena.py:161-182): each env's forecast grid from
   field_fn(forecast_keys(keys), device) (see make_field_fn), then
-  reset_from_keys. Returns (EnvState, observation (E, 1099))."""
+  reset_from_field. Returns (EnvState, observation (E, 1099))."""
   device = resolve_device(device)
-  return reset_from_keys(params, field_fn(forecast_keys(keys), device), keys,
-                         device)
+  return reset_from_field(keys, params, field_fn(forecast_keys(keys), device),
+                          device)
 
 
 def reset(params: EnvParams, seeds, field_fn, device=None):

@@ -154,12 +154,15 @@ def get_features_precomputed(params, state: balloon_lib.BalloonState,
   return torch.cat([ambient, column.reshape(column.shape[0], -1)], dim=-1)
 
 
-def get_features(params, state: balloon_lib.BalloonState,
-                 gp_state: wind_gp.WindGPState,
-                 wind: wind_field_lib.WindFieldState, atmosphere, sunrise_s,
-                 sunset_s):
-  """The (E, 1099) feature vectors (features.py:308-330), querying the GP
-  and the forecast at the levels here."""
+def wind_column_features(params, state: balloon_lib.BalloonState,
+                         gp_state: wind_gp.WindGPState,
+                         wind: wind_field_lib.WindFieldState, atmosphere):
+  """The 3 x 361 balloon-centered wind features (features.py:457-581)
+  with the GP queried and the forecast read here (ble_tpu/env/features.py:
+  wind_column_features over a batch) -> (E, 361, 3): the GP posterior at
+  the 181 levels by wind_gp.query_column (on the card the column-query
+  kernel, ops/gp_query.py), the forecast at the levels from one
+  effective_column."""
   levels = pressure_levels(state.x_m.device)
   elapsed = state.time_elapsed_s.to(torch.float32)
   error_means, deviations = wind_gp.query_column(gp_state, state.x_m,
@@ -167,8 +170,19 @@ def get_features(params, state: balloon_lib.BalloonState,
   column = wind_field_lib.effective_column(wind, state.x_m, state.y_m,
                                            state.time_elapsed_s)
   forecast = wind_field_lib.column_at_levels(column, levels)
-  return get_features_precomputed(params, state, atmosphere, sunrise_s,
-                                  sunset_s, error_means, deviations, forecast)
+  return wind_column_features_precomputed(params, state, atmosphere,
+                                          error_means, deviations, forecast)
+
+
+def get_features(params, state: balloon_lib.BalloonState,
+                 gp_state: wind_gp.WindGPState,
+                 wind: wind_field_lib.WindFieldState, atmosphere, sunrise_s,
+                 sunset_s):
+  """The (E, 1099) feature vectors (features.py:308-330), querying the GP
+  and the forecast at the levels here (wind_column_features)."""
+  ambient = ambient_features(params, state, sunrise_s, sunset_s)
+  column = wind_column_features(params, state, gp_state, wind, atmosphere)
+  return torch.cat([ambient, column.reshape(column.shape[0], -1)], dim=-1)
 
 
 @dataclasses.dataclass

@@ -103,3 +103,35 @@ def noise4d(perm, x, y, z, w):
   attn2 = attn * attn
   value = (attn2 * attn2 * (g * d).sum(dim=-1)).sum(dim=-1)
   return value / NORM_4D
+
+
+def noise4d_np(perm, x, y, z, w) -> np.ndarray:
+  """OpenSimplex 4-D noise in float64 numpy, the reference the torch
+  version is held to (ble_tpu/env/opensimplex4d.py:noise4d_np, the JAX
+  package's compat shim's evaluation).
+
+  Args:
+    perm: (..., 256) integer permutation tables from `perm_from_seed`,
+      broadcasting against the points' shape.
+    x, y, z, w: coordinates, broadcast against each other.
+
+  Returns:
+    Noise in [-1, 1] of the points' broadcast shape, float64.
+  """
+  coords = np.stack(np.broadcast_arrays(
+      *(np.asarray(c, np.float64) for c in (x, y, z, w))), axis=-1)
+  stretched = coords + coords.sum(axis=-1, keepdims=True) * STRETCH_4D
+  base = np.floor(stretched)
+  d0 = coords - (base + base.sum(axis=-1, keepdims=True) * SQUISH_4D)
+  lat = base.astype(np.int64)[..., None, :] + _OFFSETS  # (..., 256, 4)
+  # Original: perm[(perm[(perm[(perm[x&0xFF]+y)&0xFF]+z)&0xFF]+w)&0xFF]
+  table = np.broadcast_to(np.asarray(perm, np.int64),
+                          lat.shape[:-2] + (256,))
+  i = np.take_along_axis(table, lat[..., 0] & 0xFF, axis=-1)
+  for axis in (1, 2, 3):
+    i = np.take_along_axis(table, (i + lat[..., axis]) & 0xFF, axis=-1)
+  g = _GRADS[(i & 0xFC) >> 2]  # (..., 256, 4)
+  d = d0[..., None, :] - _OFFSETS - SQUISH_4D * _OFFSETS_SUM[:, None]
+  attn = 2.0 - (d * d).sum(axis=-1)
+  attn = np.where(attn > 0.0, attn, 0.0)
+  return (attn ** 4 * (g * d).sum(axis=-1)).sum(axis=-1) / NORM_4D

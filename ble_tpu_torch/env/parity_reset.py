@@ -25,7 +25,6 @@ import torch
 from ble_tpu_torch import resolve_device
 from ble_tpu_torch.env import atmosphere as atmosphere_lib
 from ble_tpu_torch.env import env as env_lib
-from ble_tpu_torch.env import wind_field as wind_field_lib
 from ble_tpu_torch.utils import prng
 from ble_tpu_torch.utils import sampling
 
@@ -80,14 +79,13 @@ def parity_reset(seed: int, params: env_lib.EnvParams, field_fn,
   wind_field_key = prng.split(arena_rng, 2)[:, 1]
   ks = prng.split(wind_field_key, 2)
   noise_key, forecast_key = ks[:, 0], ks[:, 1]
-  seeds, offsets, perms = wind_field_lib.reset_noise_exact(noise_key)
   field = field_fn(forecast_key, device)
 
   to = lambda x: x.to(device)
   x_m, y_m = to(x_m), to(y_m)
   # No slab yet, as in the JAX package: the harness centres it.
   wind = env_lib.make_wind(env_lib.EnvParams(wind_field_f32=True), field,
-                           to(seeds), to(offsets), x_m, y_m, to(perms))
+                           noise_key, x_m, y_m, exact_noise=True)
   return env_lib.init_state(params, env_lib.tree_map(to, atmosphere), to(t0),
                             x_m, y_m, to(center_lat), to(center_lng),
                             to(pressure), to(upwelling_ir), wind)

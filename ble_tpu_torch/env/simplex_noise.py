@@ -108,6 +108,38 @@ def simplex4d(coords, seed):
   return 27.0 * total
 
 
+def harmonic_noise(x_km, y_km, pressure_pa, time_hours, seeds, offsets,
+                   harmonics):
+  """One wind component's weighted multi-harmonic noise for a batch of
+  envs (ble_tpu/env/simplex_noise.py:harmonic_noise; the variance
+  calibration of the reference simplex_wind_noise.py:195-209). uv_noise
+  computes both components at once.
+
+  Args:
+    x_km, y_km, pressure_pa, time_hours: (E,) query coordinates.
+    seeds: (E, 5) int32 per-harmonic hash seeds.
+    offsets: (E, 5, 4) float32 per-harmonic grid translations.
+    harmonics: U_HARMONICS or V_HARMONICS.
+
+  Returns:
+    (E,) blended noise in m/s.
+  """
+  weighted = 0.0
+  total_weight = 0.0
+  total_weight_sq = 0.0
+  for h, (weight, xs, ys, ps, ts) in enumerate(harmonics):
+    coords = torch.stack([x_km / xs + offsets[:, h, 0],
+                          y_km / ys + offsets[:, h, 1],
+                          pressure_pa / ps + offsets[:, h, 2],
+                          time_hours / ts + offsets[:, h, 3]], dim=-1)
+    noise = NOISE_MAGNITUDE * simplex4d(coords, seeds[:, h])
+    weighted = weighted + noise * weight
+    total_weight += weight
+    total_weight_sq += weight ** 2
+  weighted = weighted / total_weight
+  return weighted * math.sqrt(total_weight / total_weight_sq)
+
+
 _UV_WEIGHTS = (tuple(h[0] for h in U_HARMONICS),
                tuple(h[0] for h in V_HARMONICS))
 _UV_SPACINGS = (tuple(h[1:] for h in U_HARMONICS),

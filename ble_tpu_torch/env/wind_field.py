@@ -84,6 +84,29 @@ def reset_noise_exact(keys):
   return seeds, offsets, perms
 
 
+def make_state(field, keys, exact_noise: bool = False,
+               field_dtype=None) -> WindFieldState:
+  """The WindFieldState of noise keys (E, 2) (ble_tpu/env/wind_field.py:
+  make_state over a leading key axis): the noise drawn on the host by
+  reset_noise, or by reset_noise_exact with `exact_noise` (the parity
+  mode's OpenSimplex tables), then moved to the grid's device; the grid in
+  `field_dtype` (default FIELD_DTYPE), one per env, a shared
+  (21, 21, 10, 9, 2) grid copied to each. No slab: the caller centres it
+  (refresh_slab)."""
+  dtype = FIELD_DTYPE if field_dtype is None else field_dtype
+  perms = None
+  if exact_noise:
+    seeds, offsets, perms = reset_noise_exact(keys)
+  else:
+    seeds, offsets = reset_noise(keys)
+  field = field.to(dtype)
+  if field.ndim == len(GRID_SHAPE):
+    field = field.expand((keys.shape[0],) + field.shape).contiguous()
+  to = lambda x: None if x is None else x.to(field.device)
+  return WindFieldState(field=field, noise_seeds=to(seeds),
+                        noise_offsets=to(offsets), noise_perms=to(perms))
+
+
 def _boomerang_hours(elapsed_s):
   """Reflects time past the 48-h horizon (grid_based_wind_field.py:134-143)."""
   hours = elapsed_s.to(torch.float32) / 3600.0

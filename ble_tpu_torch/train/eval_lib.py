@@ -55,6 +55,21 @@ def step_keys(base, start: int, stop: int):
   return prng.split(base, stop, start).transpose(0, 1)
 
 
+def build_parametric_eval_fn(env_params: env_lib.EnvParams,
+                             field_fn: Callable, policy_init: Callable,
+                             policy_step: Callable, max_steps: int = 960,
+                             record_flight_path: bool = False, device=None,
+                             policy_draw: Optional[Callable] = None):
+  """Like `build_eval_fn`, but the policy takes leading `params`
+  (ble_tpu/train/eval_lib.py:57-75): policy_init(params, keys (E, 2),
+  device) -> state and policy_step(params, state, obs, draws) -> (state,
+  actions). Returns eval_fn(params, seeds), built once and called with
+  each new set of parameters, as a training run's periodic evals do."""
+  run = _build_run(env_params, field_fn, policy_init, policy_step, max_steps,
+                   record_flight_path, device, policy_draw)
+  return lambda params, seeds: run(params, seeds)
+
+
 def build_eval_fn(env_params: env_lib.EnvParams, field_fn: Callable,
                   policy_init: Callable, policy_step: Callable,
                   max_steps: int = 960, record_flight_path: bool = False,
@@ -92,12 +107,26 @@ def build_eval_fn(env_params: env_lib.EnvParams, field_fn: Callable,
     eval_fn(seeds) -> dict of (E,) result tensors (or
     eval_fn(seeds, env_state, obs) when `from_states`).
   """
+  run = _build_run(env_params, field_fn,
+                   lambda params, keys, dev: policy_init(keys, dev),
+                   lambda params, *args: policy_step(*args), max_steps,
+                   record_flight_path, device, policy_draw)
+  if from_states:
+    return lambda seeds, env_state, obs: run(None, seeds, env_state, obs)
+  return lambda seeds: run(None, seeds)
+
+
+def _build_run(env_params, field_fn, policy_init, policy_step, max_steps,
+               record_flight_path, device, policy_draw):
+  """The evaluator behind both build functions: run(params, seeds,
+  env_state=None, obs=None) with the policy functions taking `params`
+  first."""
   device = resolve_device(device)
   period = wind_gp_lib.REFRESH_PERIOD
   radius_km = env_params.station_keeping_radius_km
   n_chunked = (max_steps // period) * period
 
-  def run(seeds, env_state=None, obs=None):
+  def run(params, seeds, env_state=None, obs=None):
     seeds = [int(s) for s in seeds]
     if env_state is None:
       env_state, obs = env_lib.reset(env_params, seeds, field_fn, device)
@@ -108,10 +137,10 @@ def build_eval_fn(env_params: env_lib.EnvParams, field_fn: Callable,
     def draws_of(keys):
       return None if policy_draw is None else policy_draw(keys).to(dev)
 
-    pstate = policy_init(pkey, dev)
+    pstate = policy_init(params, pkey, dev)
     first = draws_of(akey[None])
-    pstate, action = policy_step(pstate, obs, None if first is None
-                                 else first[0])
+    pstate, action = policy_step(params, pstate, obs,
+                                 None if first is None else first[0])
     active = torch.ones((n,), dtype=torch.bool, device=dev)
     reward = torch.zeros((n,), dtype=torch.float32, device=dev)
     within = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -148,7 +177,7 @@ def build_eval_fn(env_params: env_lib.EnvParams, field_fn: Callable,
             b.superpressure_pa, b.time_elapsed_s.to(torch.float32),
             out.info['battery_soc']], dim=-1))
       env_state = out.state
-      pstate, action = policy_step(pstate, out.observation,
+      pstate, action = policy_step(params, pstate, out.observation,
                                    None if chunk is None
                                    else chunk[t % period])
 
@@ -163,9 +192,7 @@ def build_eval_fn(env_params: env_lib.EnvParams, field_fn: Callable,
       result['flight_path'] = torch.stack(paths, dim=1)
     return result
 
-  if from_states:
-    return run
-  return lambda seeds: run(seeds)
+  return run
 
 
 def evaluate(eval_fn, seeds: Sequence[int], batch_size: int = 0

@@ -33,6 +33,7 @@ The trainable agent is chosen by name, as in the JAX package:
 """
 
 import dataclasses
+import functools
 import logging
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -451,22 +452,28 @@ def run_episode_chunk(config: TrainConfig, env_params: env_lib.EnvParams,
   return ts, {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
 
 
-def make_eval_policy(config: TrainConfig, network) -> base.Policy:
-  """The greedy policy of `network` for eval_lib.build_eval_fn (it draws
-  nothing). A recurrent agent threads its LSTM carry through the policy
-  state, one lane an env (ble_tpu learner.py:457-484)."""
+def make_parametric_eval_policy(config: TrainConfig) -> base.Policy:
+  """The greedy policy of config's agent with the network as a leading
+  argument, for eval_lib.build_parametric_eval_fn: init(network, keys,
+  device) and step(network, state, obs, draws); it draws nothing. A
+  recurrent agent threads its LSTM carry through the policy state, one
+  lane an env (ble_tpu learner.py:457-484; ble_tpu/train/train.py:30-41)."""
   core = make_agent_core(config)
-
   if core.actor_select is not None:
-    def policy_init(keys, device):
-      return core.actor_init(network, keys.shape[0], device)
+    return base.Policy(
+        lambda network, keys, device: core.actor_init(network, keys.shape[0],
+                                                      device),
+        lambda network, state, obs, draws: core.actor_select(
+            network, state, obs, None, 0.0))
+  return base.Policy(
+      lambda network, keys, device: (),
+      lambda network, state, obs, draws: (
+          state, core.select_action(network, obs, None, 0.0)))
 
-    def policy_step(state, obs, draws):
-      return core.actor_select(network, state, obs, None, 0.0)
 
-    return base.Policy(policy_init, policy_step)
-
-  def policy_step(state, obs, draws):
-    return state, core.select_action(network, obs, None, 0.0)
-
-  return base.Policy(lambda keys, device: (), policy_step)
+def make_eval_policy(config: TrainConfig, network) -> base.Policy:
+  """The greedy policy of `network` for eval_lib.build_eval_fn:
+  make_parametric_eval_policy with the network bound."""
+  policy = make_parametric_eval_policy(config)
+  return base.Policy(functools.partial(policy.init, network),
+                     functools.partial(policy.step, network))

@@ -34,19 +34,23 @@ from ble_tpu_torch.train import train_lib
 
 def make_periodic_eval(base_dir, env_params, field_fn, config,
                        eval_suite: str, t_start: float, device):
-  """Greedy-policy eval on a suite; appends one JSON line per call to
-  base_dir/learning_curve.jsonl."""
+  """Greedy-policy eval on a suite (ble_tpu/train/train.py:27-64); appends
+  one JSON line per call to base_dir/learning_curve.jsonl. The eval
+  function is built once a run and given the learner's current network at
+  each call. train_steps is the learner's count for every agent (the JAX
+  package writes 0 for mlp, whose online state has none)."""
   core = learner_lib.make_agent_core(config)
+  policy = learner_lib.make_parametric_eval_policy(config)
   suite = suites.get_eval_suite(eval_suite)
+  eval_fn = eval_lib.build_parametric_eval_fn(
+      env_params, field_fn, policy.init, policy.step,
+      max_steps=suite.max_episode_length, device=device)
   curve_path = os.path.join(base_dir, 'learning_curve.jsonl')
 
   def eval_cb(ts, iteration):
-    policy = learner_lib.make_eval_policy(config, core.params_of(ts.learner))
-    eval_fn = eval_lib.build_eval_fn(env_params, field_fn, policy.init,
-                                     policy.step,
-                                     max_steps=suite.max_episode_length,
-                                     device=device, policy_draw=policy.draw)
-    summary = eval_lib.summarize(eval_lib.evaluate(eval_fn, suite.seeds))
+    network = core.params_of(ts.learner)
+    summary = eval_lib.summarize(eval_lib.evaluate(
+        lambda seeds: eval_fn(network, seeds), suite.seeds))
     record = {
         'iteration': iteration,
         'env_steps': ts.env_steps * config.num_envs,

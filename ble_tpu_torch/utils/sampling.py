@@ -14,7 +14,6 @@ import torch
 
 from ble_tpu_torch.env import atmosphere as atmosphere_lib
 from ble_tpu_torch.env import safety
-from ble_tpu_torch.env import wind_field as wind_field_lib
 from ble_tpu_torch.utils import prng
 from ble_tpu_torch.utils import time_lib
 
@@ -82,14 +81,13 @@ def sample_initial_conditions(keys):
 
   Returns a dict of CPU tensors with a leading env axis: atmosphere_alpha,
   time_s, x_m, y_m, center_lat_rad, center_lng_rad, pressure_pa,
-  upwelling_ir, noise_seeds (E, 2, 5) and noise_offsets (E, 2, 5, 4).
+  upwelling_ir, and noise_keys (E, 2), from which wind_field.make_state
+  draws the noise (wind_field.reset_noise).
   """
   ks = prng.split(keys, 7)
   alpha = prng.uniform(ks[:, 0])
   x_m, y_m = sample_initial_offset(ks[:, 2])
   lat, lng = sample_location(ks[:, 3])
-  noise_seeds, noise_offsets = wind_field_lib.reset_noise(
-      prng.split(ks[:, 6])[:, 0])
   return {
       'atmosphere_alpha': alpha,
       'time_s': sample_time(ks[:, 1]),
@@ -99,6 +97,5 @@ def sample_initial_conditions(keys):
       'center_lng_rad': lng,
       'pressure_pa': sample_pressure(ks[:, 4], atmosphere_lib.make(alpha)),
       'upwelling_ir': sample_upwelling_infrared(ks[:, 5]),
-      'noise_seeds': noise_seeds,
-      'noise_offsets': noise_offsets,
+      'noise_keys': prng.split(ks[:, 6])[:, 0],
   }

@@ -16,6 +16,12 @@ def unix_seconds_from_datetime(d: dt.datetime) -> int:
   return int(d.timestamp())
 
 
+def datetime_from_unix_seconds(s: int) -> dt.datetime:
+  """The UTC datetime of integer unix seconds (the inverse of
+  unix_seconds_from_datetime)."""
+  return dt.datetime.fromtimestamp(int(s), tz=dt.timezone.utc)
+
+
 def civil_from_unix_seconds(time_s):
   """(year, month, day, second_of_day) int32 tensors from unix seconds."""
   time_s = time_s.to(torch.int32)

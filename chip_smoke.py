@@ -55,6 +55,21 @@ Phases (each raises on a failure, so the exit code is then not 0):
              must launch every step, the observations stay finite and the
              time within radius lies in [0, 1]. Run twice from one
              initial state: the first run is counted, the second timed.
+  api        the functions of the JAX package's public API that reach
+             the card's kernels outside the main path: (a)
+             features.wind_column_features at E = 4096 on main's reset
+             state launches B5 once, equals get_features' column block in
+             bits, and its GP query is within B5_ATOL of the same call on
+             the CPU; its time by CUDA events; (b) the training CLI
+             (--agent quantile, no --device, TrainConfig's defaults: 8 x
+             600, 51 atoms, 1024 generative envs) for two iterations of 8
+             env steps with --eval_every 1 on micro_eval (one seed, 960
+             steps): two learning_curve.jsonl records with the JAX
+             package's keys, B1 and B2 launched every eval step, the last
+             record's TWR and reward equal to a re-evaluation of the final
+             checkpoint's network (the eval CLI, that is
+             eval_lib.evaluate over learner.make_eval_policy, at the same
+             batch, beside the last eval); the eval's env-steps/s.
   window     the window route: env.rollout_window at K = 8 from main's
              initial state (E = 4096, generative fields, slab cache on):
              one window against 8 step_batched calls from the same state
@@ -92,7 +107,9 @@ Phases (each raises on a failure, so the exit code is then not 0):
              atoms); a chunk of 8 env steps (mlp and r2d2 then a selective
              reset whose envs must lose their lanes; r2d2 a second chunk),
              2 steps with the learner timed apart and one under
-             torch.profiler. B1 and B2 must launch every env step,
+             torch.profiler (mlp and r2d2; dqn's and finetune's run
+             unprofiled, as quantile's is profiled in phase train). B1
+             and B2 must launch every env step,
              train_steps match each agent's count (dqn and finetune 256,
              r2d2 16 an env step once replay can sample, mlp one SGD step
              every env step), losses finite, the online parameters moved,
@@ -118,7 +135,8 @@ Phases (each raises on a failure, so the exit code is then not 0):
              whether the bits are equal is printed), env-steps/s, gradient
              steps/s and the all-reduce's share of a train step under
              torch.profiler beside phase train's, then the eval CLI
-             (--agent quantile, micro_eval) on the checkpoint. (b) two
+             (--agent quantile, micro_eval cut to 128 steps) on the
+             checkpoint. (b) two
              ranks of 64 envs on the one card over gloo (NCCL refuses two
              ranks on one GPU) against one process of 128: greedy,
              MarcoPolo off, no learning, a forced selective_reset;
@@ -195,8 +213,8 @@ DEV = 'cuda'
 E = 4096
 MAIN_STEPS = 128
 DEFAULT_PHASES = ('device', 'build', 'kernels', 'reference', 'worlds', 'gym',
-                  'pair', 'main', 'window', 'train', 'agents', 'distributed',
-                  'vae', 'timing')
+                  'pair', 'main', 'api', 'window', 'train', 'agents',
+                  'distributed', 'vae', 'timing')
 # Phase worlds: the seeds and steps of its StationSeeker eval and of the
 # random agent's actions held against the JAX package's values
 # (tests/torch_jax_worlds.json, written by tests/test_torch_worlds.py). The
@@ -1110,6 +1128,7 @@ def port_worlds(fixture: dict, device) -> dict:
   from ble_tpu_torch.agents import random_walk
   from ble_tpu_torch.env import env as env_lib
   from ble_tpu_torch.env import parity_reset
+  from ble_tpu_torch.env import wind_field
   from ble_tpu_torch.generative import vae
   from ble_tpu_torch.models import loader
   from ble_tpu_torch.train import eval_lib
@@ -1137,13 +1156,14 @@ def port_worlds(fixture: dict, device) -> dict:
                                            'static'), device=device)
   perms = state.wind.noise_perms[0].cpu().to(torch.int32).contiguous()
   strata = suites._strata_seeds()
+  ic = sampling.sample_initial_conditions(keys)
+  ic['noise_seeds'], ic['noise_offsets'] = wind_field.reset_noise(
+      ic.pop('noise_keys'))
   return {
       'ic_seeds': ic_seeds,
       'strata_first': {name: seeds[0] for name, seeds in strata.items()},
       'reset_keys': keys.tolist(),
-      'initial_conditions': {
-          k: v.tolist()
-          for k, v in sampling.sample_initial_conditions(keys).items()},
+      'initial_conditions': {k: v.tolist() for k, v in ic.items()},
       'wide': {'seed': wide, 'key': prng.key(wide).tolist(),
                'reset_key': env_lib.seed_keys([wide])[0].tolist()},
       'latents': vae.sample_latent(
@@ -1224,6 +1244,7 @@ def phase_worlds(field_fn) -> None:
   import os
   from ble_tpu_torch.env import env as env_lib
   from ble_tpu_torch.env import parity_reset
+  from ble_tpu_torch.env import wind_field
   from ble_tpu_torch.generative import vae
   from ble_tpu_torch.train import eval as eval_cli
   from ble_tpu_torch.train import eval_lib
@@ -1300,7 +1321,8 @@ def phase_worlds(field_fn) -> None:
   # card, and the fallback decoder's init.
   seeds = list(range(WORLDS_RESET_E))
   t = time.perf_counter()
-  sampling.sample_initial_conditions(env_lib.seed_keys(seeds))
+  ic = sampling.sample_initial_conditions(env_lib.seed_keys(seeds))
+  wind_field.reset_noise(ic['noise_keys'])
   draws_ms = (time.perf_counter() - t) * 1e3
   params = env_lib.EnvParams(field_cache=True)
   reset_ms = []
@@ -1356,7 +1378,7 @@ def phase_gym() -> dict:
   driven with the card's actions: x and y within 0.05 km, elapsed time
   exactly, state of charge within 1e-3 (the golden trajectory's bounds,
   tests/test_golden_trajectory.py:39-46). Then the step's wall time, and
-  its device time and busy share under torch.profiler over 16 more steps.
+  its device time and busy share under torch.profiler over 4 more steps.
   The StationSeeker agent, and the random and random-walk agents that
   act once on the last observation, are built as a user builds them,
   through agents.base.create_agent with no device: on the card.
@@ -1421,7 +1443,8 @@ def phase_gym() -> dict:
   t = time.perf_counter()
   more_steps()
   steady_ms = 1e3 * (time.perf_counter() - t) / 16
-  device_ms, per_step, _ = device_time(more_steps, 16)
+  # 4 profiled steps: 16 took ~42 s under the profiler.
+  device_ms, per_step, _ = device_time(lambda: more_steps(4), 4)
   summary = {'wall_ms_per_step': wall_ms, 'steady_wall_ms_per_step': steady_ms,
              'device_ms_per_step': device_ms,
              'device_launches_per_step': per_step,
@@ -1562,6 +1585,187 @@ def phase_main(params, field_fn, state0, obs0) -> dict:
   log('main:', json.dumps(summary))
   return {'launches': launches, 'summary': summary,
           'per_step_ms': 1e3 * second_s / MAIN_STEPS}
+
+
+# Phase api (b): the training CLI with its periodic eval, QR-DQN at
+# TrainConfig's defaults, two iterations of 8 env steps, an eval after
+# each over micro_eval (one seed, 960 steps). The JAX package's record keys
+# (ble_tpu/train/train.py:50-57 and its eval_lib.summarize), which
+# tests/test_torch_periodic_eval.py reads from the JAX package itself.
+API_CLI_ARGS = ('--agent', 'quantile', '--num_iterations', '2',
+                '--max_episode_length', '8', '--eval_every', '1',
+                '--eval_suite', 'micro_eval')
+API_RECORD_KEYS = {'iteration', 'env_steps', 'train_steps', 'wall_s',
+                   'mean_cumulative_reward', 'mean_twr', 'num_terminated',
+                   'num_seeds'}
+
+
+@contextlib.contextmanager
+def _recorded_query_columns(seen: list):
+  """Notes each wind_gp.query_column result (error means, deviations)."""
+  from ble_tpu_torch.env import wind_gp
+  query = wind_gp.query_column
+
+  def noted(*args, **kwargs):
+    out = query(*args, **kwargs)
+    seen.append(out)
+    return out
+
+  wind_gp.query_column = noted
+  try:
+    yield
+  finally:
+    wind_gp.query_column = query
+
+
+def api_column_features(params, state) -> dict:
+  """(a) features.wind_column_features at the main path's E = 4096 on its
+  reset state (generative fields, slab cache on): B5 launched once by it,
+  its output equal in bits to get_features' column block on the same
+  state, and its GP column query (the kernel's output) within B5_ATOL of
+  the same call on the CPU, where the plain version runs; then its time
+  by CUDA events."""
+  from ble_tpu_torch.env import env as env_lib
+  from ble_tpu_torch.env import features
+  b = state.balloon
+  args = (params.balloon, b, state.gp, state.wind, state.atmosphere)
+  seen = []
+  counts = _reset_counts()
+  with _recorded_query_columns(seen):
+    column = features.wind_column_features(*args)
+  torch.cuda.synchronize()
+  launches = counts()
+  check(launches['gp_query'] == 1 and len(seen) == 1,
+        f'api: wind_column_features launched {launches}')
+  check(tuple(column.shape) == (E, 361, 3) and
+        column.device.type == torch.device(DEV).type,
+        f'api: wind_column_features shape {tuple(column.shape)}')
+  check(bool(torch.isfinite(column).all()), 'api: column features not finite')
+  full = features.get_features(*args, state.sunrise_s, state.sunset_s)
+  check(torch.equal(full[:, 16:], column.reshape(E, -1)),
+        'api: wind_column_features differs from the column block of '
+        'get_features')
+
+  to_cpu = lambda x: x.cpu()
+  cpu_args = (params.balloon,) + tuple(env_lib.tree_map(to_cpu, a)
+                                       for a in args[1:])
+  cpu_seen = []
+  with _recorded_query_columns(cpu_seen):
+    cpu_column = features.wind_column_features(*cpu_args)
+  errs = {'means': float((seen[0][0].cpu() - cpu_seen[0][0]).abs().max()),
+          'deviations': float((seen[0][1].cpu() - cpu_seen[0][1])
+                              .abs().max())}
+  feature_err = float((column.cpu() - cpu_column).abs().max())
+  ms = cuda_ms(lambda: features.wind_column_features(*args), reps=10)
+  log(f'api: wind_column_features E={E}: B5 launches {launches["gp_query"]}, '
+      f'equal to get_features\' column block; max |card - cpu| of its GP '
+      f'query {json.dumps(errs)}, of the features {feature_err:.3g} (not '
+      f'gated: reachability masks from another float32 evaluation order); '
+      f'{ms:.4f} ms a call by CUDA events; {nvidia_smi_line()}')
+  for f, err in errs.items():
+    check(err <= B5_ATOL[f], f'api: B5 {f} card vs CPU {err} > {B5_ATOL[f]}')
+  return {'launches': launches['gp_query'],
+          'max_abs_err': max(errs.values()), 'ms': ms}
+
+
+def api_train_cli() -> dict:
+  """(b) `python -m ble_tpu_torch.train.train` with --eval_every 1 as a user
+  runs it (API_CLI_ARGS, no --device, so on the card, at TrainConfig's
+  full width over 1024 generative envs): two learning_curve.jsonl records
+  with the JAX package's keys, B1 and B2 launched through each eval's 960
+  steps, and the last record's TWR and reward equal to a re-evaluation of
+  the final checkpoint's network: the eval CLI (`python -m
+  ble_tpu_torch.train.eval --agent quantile --checkpoint_dir`, that is
+  eval_lib.evaluate over learner.make_eval_policy of the checkpoint's
+  network, on the card at the same batch of one seed). It starts as soon
+  as the training loop has written the last checkpoint (before the last
+  eval, ble_tpu_torch/train/train_lib.py:run_training_loop) and runs
+  beside that eval, so the eval's rate is read from the first one."""
+  import os
+  import tempfile
+  from ble_tpu_torch.train import eval_lib
+  from ble_tpu_torch.train import suites
+  from ble_tpu_torch.train import train
+  evals, started = [], []
+  make = train.make_periodic_eval
+  last = int(API_CLI_ARGS[API_CLI_ARGS.index('--num_iterations') + 1]) - 1
+  suite = suites.get_eval_suite('micro_eval')
+  steps = suite.max_episode_length * len(suite.seeds)
+  with tempfile.TemporaryDirectory() as d:
+    eval_dir = os.path.join(d, 'eval')
+
+    def timed(*args, **kwargs):
+      callback = make(*args, **kwargs)
+
+      def eval_cb(ts, iteration):
+        if iteration == last:
+          started.append(time.perf_counter())
+          started.append(_start([
+              sys.executable, '-m', 'ble_tpu_torch.train.eval', '--agent',
+              'quantile', '--checkpoint_dir', d, '--suite', 'micro_eval',
+              '--output_dir', eval_dir]))
+        counts = _reset_counts()
+        t = time.perf_counter()
+        callback(ts, iteration)
+        torch.cuda.synchronize()
+        evals.append({'seconds': time.perf_counter() - t, **counts()})
+
+      return eval_cb
+
+    train.make_periodic_eval = timed
+    try:
+      t = time.perf_counter()
+      ts = train.main(['--base_dir', d, *API_CLI_ARGS])
+      torch.cuda.synchronize()
+      run_s = time.perf_counter() - t
+    except BaseException:
+      _stop(started[1:])
+      raise
+    finally:
+      train.make_periodic_eval = make
+    check(len(started) == 2, 'api: the last iteration was not evaluated')
+    _finish(started[1:])
+    reeval_s = time.perf_counter() - started[0]
+    with open(os.path.join(d, 'learning_curve.jsonl')) as f:
+      records = [json.loads(line) for line in f]
+    with open(os.path.join(eval_dir, 'quantile_micro_eval.json')) as f:
+      results = json.load(f)['results']
+  want = eval_lib.summarize([eval_lib.EvaluationResult(**r) for r in results])
+  log(f'api: train CLI {" ".join(API_CLI_ARGS)}: {run_s:.2f} s, evals '
+      f'{json.dumps(evals)}; records {json.dumps(records)}; the eval CLI on '
+      f'the last checkpoint {json.dumps(want)}, done {reeval_s:.2f} s after '
+      f'its start; eval {steps / evals[0]["seconds"]:.1f} env-steps/s at '
+      f'E = {len(suite.seeds)}; {nvidia_smi_line()}')
+  check([r['iteration'] for r in records] == [0, last],
+        f'api: learning_curve iterations {[r.get("iteration") for r in records]}')
+  for r in records:
+    check(set(r) == API_RECORD_KEYS, f'api: record keys {sorted(r)}')
+  check(records[-1]['env_steps'] == ts.env_steps * ts.obs.shape[0] and
+        records[-1]['train_steps'] == ts.learner.train_steps,
+        f'api: last record counts {records[-1]}')
+  check([r['seed'] for r in results] == list(suite.seeds),
+        f'api: eval CLI seeds {[r["seed"] for r in results]}')
+  for key in ('mean_twr', 'mean_cumulative_reward', 'num_terminated',
+              'num_seeds'):
+    check(records[-1][key] == want[key],
+          f'api: record {key} {records[-1][key]} != re-evaluation {want[key]}')
+  for e in evals:
+    check(e['physics'] >= steps and e['gp_window'] >= steps,
+          f'api: B1 or B2 not launched every eval step: {e}')
+  return {'launches': {k: sum(e[k] for e in evals)
+                       for k in ('physics', 'gp_window')},
+          'eval_steps_per_s': steps / evals[0]['seconds'],
+          'run_s': run_s, 'reeval_s': reeval_s}
+
+
+def phase_api(params, state) -> dict:
+  """(a) wind_column_features on the main path's state, (b) the training
+  CLI's periodic eval (see the module docstring)."""
+  t = time.perf_counter()
+  column = api_column_features(params, state)
+  cli = api_train_cli()
+  log(f'api: phase {time.perf_counter() - t:.1f} s')
+  return {'column': column, 'cli': cli}
 
 
 WINDOW_K = 8
@@ -2122,13 +2326,13 @@ def phase_train(field_fn):
     ts, _ = learner_lib.env_step(config, params, ts)
     torch.cuda.synchronize()
 
-  # Two sessions, the one with more launches kept (kernel_device_ms says
-  # why); both logged.
+  # One profile: each takes ~50 s for its ~69,000 launches, and a second
+  # one, once taken in case the first lost kernel records, never found
+  # more launches.
   with _train_ranges():
-    sessions = [device_time(one_step, 1) for _ in range(2)]
-  log('train: profiled env steps (device ms, launches):',
-      [s[:2] for s in sessions])
-  device_ms, launches_per_step, events = max(sessions, key=lambda s: s[1])
+    device_ms, launches_per_step, events = device_time(one_step, 1)
+  log('train: profiled env step (device ms, launches):',
+      [device_ms, launches_per_step])
   ranges = {e.key: e.cpu_time_total / 1e3 for e in events
             if e.key.startswith('step/') and e.device_type == DeviceType.CPU}
   wall_ms = 1e3 * split_s / TRAIN_SPLIT_STEPS
@@ -2171,8 +2375,9 @@ def phase_train(field_fn):
 AGENTS = ('dqn', 'finetune_perciatelli', 'mlp', 'r2d2')
 AGENTS_CHUNK = 8
 AGENTS_TIMED_STEPS = 2
-# The r2d2 eval CLI's episode: micro_eval's one seed, cut from 960 steps
-# for the script's time limit (960 steps of one env took 92-131 s).
+# The episode of the r2d2 eval CLI and of phase distributed's: micro_eval's
+# one seed, cut from 960 steps for the script's time limit (960 steps of
+# one env took 79-131 s).
 AGENTS_EVAL_STEPS = 128
 
 
@@ -2207,8 +2412,8 @@ def run_agent(name, params, field_fn, env_state, obs, counts) -> dict:
   a selective_reset with every eighth env forced inactive, whose lanes
   must be dropped; for r2d2 a second chunk (its first trainable window
   step needs burn_in + 2 = 10 written slots); then AGENTS_TIMED_STEPS
-  steps with the learner timed apart, and one under torch.profiler.
-  Gates: B1 and B2 launched every env step; train_steps = the agent's
+  steps with the learner timed apart, and one more, under
+  torch.profiler for mlp and r2d2. Gates: B1 and B2 launched every env step; train_steps = the agent's
   train steps an env step x the steps at which replay could sample (mlp:
   one SGD step every env step); losses finite; the online parameters
   moved; replay.total = the steps."""
@@ -2276,7 +2481,15 @@ def run_agent(name, params, field_fn, env_state, obs, counts) -> dict:
     losses.append(m['loss'][None])
     torch.cuda.synchronize()
 
-  device_ms, profiled_launches, _ = device_time(one_step, 1)
+  if name in ('dqn', 'finetune_perciatelli'):
+    # 256 train steps an env step: a profiled 1024-env step takes ~40 s.
+    # Phase train profiles quantile's, whose network finetune shares and
+    # whose step dqn's mirrors (233.3 launches a train step when last
+    # profiled, H100 80GB HBM3 at 700 W).
+    one_step()
+    device_ms = profiled_launches = None
+  else:
+    device_ms, profiled_launches, _ = device_time(one_step, 1)
   steps += 1
   after = counts()
   launches = {k: after[k] - before[k] for k in after}
@@ -2315,8 +2528,9 @@ def run_agent(name, params, field_fn, env_state, obs, counts) -> dict:
       'env_ms_per_env_step': 1e3 * (split_s - learner_s) / AGENTS_TIMED_STEPS,
       'profiled_device_ms_per_env_step': device_ms,
       'profiled_launches_per_env_step': profiled_launches,
-      'launches_per_train_step': profiled_launches / per_env_step,
-      'device_busy_share': device_ms / wall_ms,
+      'launches_per_train_step': (None if profiled_launches is None else
+                                  profiled_launches / per_env_step),
+      'device_busy_share': None if device_ms is None else device_ms / wall_ms,
       'loss_first_nonzero_last': [float(loss[loss > 0][0]),
                                   float(loss[-1])],
       'launches': launches,
@@ -2809,7 +3023,20 @@ def worker_tp(out_path: str, init_method: str) -> None:
     torch.distributed.destroy_process_group()
 
 
-WORKERS = {'train': worker_train, 'gloo': worker_gloo, 'tp': worker_tp}
+def worker_eval(steps: str, *cli_argv) -> None:
+  """The eval CLI (`python -m ble_tpu_torch.train.eval`) with the suite's
+  episodes cut to `steps` steps, for the script's time limit (phase api
+  (b) runs a whole 960-step episode of the same CLI)."""
+  from ble_tpu_torch.train import eval as eval_cli
+  from ble_tpu_torch.train import suites
+  get_eval_suite = suites.get_eval_suite
+  suites.get_eval_suite = lambda name: suites.EvaluationSuite(
+      get_eval_suite(name).seeds, int(steps))
+  eval_cli.main(list(cli_argv))
+
+
+WORKERS = {'train': worker_train, 'gloo': worker_gloo, 'tp': worker_tp,
+           'eval': worker_eval}
 
 
 def _learner_errs(got: dict, want: dict, start: dict) -> dict:
@@ -3016,7 +3243,8 @@ def phase_distributed(params, field_fn, phases, train_summary) -> dict:
     a = dist_part_a(phases, base, work)
     eval_dir = os.path.join(work, 'eval')
     t_eval = time.perf_counter()
-    evaluation = [_start([sys.executable, '-m', 'ble_tpu_torch.train.eval',
+    evaluation = [_start([sys.executable, os.path.abspath(__file__),
+                          '--worker', 'eval', str(AGENTS_EVAL_STEPS),
                           '--agent', 'quantile', '--checkpoint_dir', base,
                           '--suite', 'micro_eval', '--output_dir',
                           eval_dir])]
@@ -3040,12 +3268,14 @@ def phase_distributed(params, field_fn, phases, train_summary) -> dict:
     eval_s = time.perf_counter() - t_eval
     with open(os.path.join(eval_dir, 'quantile_micro_eval.json')) as f:
       results = json.load(f)['results']
-    check(len(results) == 1 and results[0]['final_timestep'] > 0 and
+    check(len(results) == 1 and
+          0 < results[0]['final_timestep'] <= AGENTS_EVAL_STEPS and
           0.0 <= results[0]['time_within_radius'] <= 1.0 and
           np.isfinite(results[0]['cumulative_reward']),
           f'distributed: eval of the checkpoint {results}')
-    log(f'distributed (a): eval CLI on the checkpoint, micro_eval, done '
-        f'{eval_s:.1f} s after its start: {json.dumps(results[0])}')
+    log(f'distributed (a): eval CLI on the checkpoint, micro_eval (cut to '
+        f'{AGENTS_EVAL_STEPS} steps), done {eval_s:.1f} s after its start: '
+        f'{json.dumps(results[0])}')
   s, p = a['summary'], a['profile']
   u = p['unprofiled']
   report = {
@@ -3487,7 +3717,8 @@ def time_b2(gp_state, obs=None) -> dict:
 
 
 def phase_timing(params, state, gp_state, gym_state, train_state,
-                 train_b2, window_out, agents_out=None) -> dict:
+                 train_b2, window_out, agents_out=None,
+                 api: bool = False) -> dict:
   """Each kernel at the batch of the path its launches are counted on:
   B1 and B2 at E = 4096 (main); B1 on the window run's final state and B2
   at K = 8 on its last window's GP state and observations, E = 4096
@@ -3495,8 +3726,12 @@ def phase_timing(params, state, gp_state, gym_state, train_state,
   and B3 on a GP state warmed past the ring, E = 1 (gym); B4 and B5 at
   E = 4096 (pair); B1 on the train run's final env state and B2 on the
   train run's own GP state and observations, E = 1024 (train); the same
-  on the r2d2 run of phase agents, E = 1024 (agents)."""
+  on the r2d2 run of phase agents, E = 1024 (agents); B5 on the main
+  path's reset state, E = 4096 (api)."""
   out = {'physics': time_b1(params, state)}
+  if api:
+    b = state.balloon
+    out['gp_query_api'] = time_b5(state.gp, b.x_m, b.y_m, b.time_elapsed_s)
   if window_out is not None:
     out['physics_window'] = time_b1(params, window_out['state'])
     out['gp_window_window'] = time_b2(*window_out['b2'])
@@ -3697,11 +3932,12 @@ def main(argv=None) -> int:
 
   params = env_lib.EnvParams(field_cache=True)
   field_fn = state0 = obs0 = gp_state = None
-  if phases & {'kernels', 'pair', 'main', 'window', 'train', 'agents',
-                'distributed', 'timing', 'numerics', 'profile', 'splits'}:
-    field_fn = generative_field_fn()
-  if phases & {'kernels', 'main', 'window', 'timing', 'numerics', 'profile',
+  if phases & {'kernels', 'pair', 'main', 'api', 'window', 'train',
+                'agents', 'distributed', 'timing', 'numerics', 'profile',
                 'splits'}:
+    field_fn = generative_field_fn()
+  if phases & {'kernels', 'main', 'api', 'window', 'timing', 'numerics',
+                'profile', 'splits'}:
     state0, obs0 = reset_main(params, field_fn)
   errs = {}
   if phases & {'kernels', 'timing'}:
@@ -3752,6 +3988,13 @@ def main(argv=None) -> int:
     main_out = phase_main(params, field_fn, state0, obs0)
     launches.update(main_out['launches'])
     mark('main')
+  api_out = None
+  if 'api' in phases:
+    api_out = phase_api(params, state0)
+    launches['gp_query_api'] = api_out['column']['launches']
+    errs['gp_query_api'] = {
+        'max_abs_err': api_out['column']['max_abs_err']}
+    mark('api')
   window_out = None
   if 'window' in phases:
     window_out = phase_window(params, state0)
@@ -3791,7 +4034,8 @@ def main(argv=None) -> int:
   timing = {}
   if 'timing' in phases:
     timing = phase_timing(params, state0, gp_state, gym_state, train_state,
-                          train_b2, window_out, agents_out)
+                          train_b2, window_out, agents_out,
+                          api=api_out is not None)
     if dist_out is not None:
       timing.update(dist_out['timing'])
     mark('timing')
@@ -3824,6 +4068,7 @@ def main(argv=None) -> int:
                         f'pair, E={E}'),
       'gp_query_gym': b5 + ('gym, E=1',),
       'gp_query_pair': b5 + (f'pair, E={E}',),
+      'gp_query_api': b5 + (f'api (features.wind_column_features), E={E}',),
   }
   for name, (source, replaces, path) in sources.items():
     row = {'name': name, 'route': 'cuda', 'source': source,

@@ -23,6 +23,7 @@ from ble_tpu_torch import bridge
 from ble_tpu_torch.agents import station_seeker
 from ble_tpu_torch.env import env as env_lib
 from ble_tpu_torch.env import features
+from ble_tpu_torch.env import wind_field
 from ble_tpu_torch.env import wind_gp
 from ble_tpu_torch.train import eval_lib
 
@@ -165,6 +166,49 @@ def test_init_state_and_features_match_jax(worlds):
                      torch.from_numpy(np.asarray(
                          jax_features.parse(want).last_command)).to(
                              parsed.last_command.dtype))
+
+
+def test_wind_column_features_matches_jax(worlds):
+  """wind_column_features on ble_tpu's worlds against
+  jax.vmap(ble_tpu wind_column_features), at the features' 1e-3 of
+  test_init_state_and_features_match_jax."""
+  jparams, jstates, _ = worlds
+  params = env_lib.EnvParams(wind_field_f32=True, field_cache=True)
+  state = _to_port(jstates)
+  want = jax.vmap(functools.partial(jax_features.wind_column_features,
+                                    jparams.balloon))(
+      jstates.balloon, jstates.gp, jstates.wind, jstates.atmosphere)
+  got = features.wind_column_features(params.balloon, state.balloon,
+                                      state.gp, state.wind, state.atmosphere)
+  assert got.shape == (E, 361, 3) and got.dtype == torch.float32
+  np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3)
+  assert not features.wind_is_valid(got).all()  # Some levels unreachable.
+
+
+def test_get_features_is_its_old_composition_bit_for_bit(worlds):
+  """get_features, now ambient_features beside wind_column_features, gives
+  the bits of the composition it had before: one GP column query, the
+  forecast at the levels from one effective_column, and
+  get_features_precomputed; its column block is wind_column_features'."""
+  _, jstates, _ = worlds
+  params = env_lib.EnvParams(wind_field_f32=True, field_cache=True)
+  state = _to_port(jstates)
+  b = state.balloon
+  levels = features.pressure_levels()
+  means, deviations = wind_gp.query_column(
+      state.gp, b.x_m, b.y_m, b.time_elapsed_s.to(torch.float32), levels)
+  forecast = wind_field.column_at_levels(wind_field.effective_column(
+      state.wind, b.x_m, b.y_m, b.time_elapsed_s), levels)
+  before = features.get_features_precomputed(
+      params.balloon, b, state.atmosphere, state.sunrise_s, state.sunset_s,
+      means, deviations, forecast)
+  got = features.get_features(params.balloon, b, state.gp, state.wind,
+                              state.atmosphere, state.sunrise_s,
+                              state.sunset_s)
+  assert torch.equal(got, before)
+  column = features.wind_column_features(params.balloon, b, state.gp,
+                                         state.wind, state.atmosphere)
+  assert torch.equal(got[:, 16:], column.reshape(E, -1))
 
 
 def test_slice_closed_loop_station_seeker(worlds):

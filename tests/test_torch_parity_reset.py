@@ -94,6 +94,32 @@ def test_noise4d_matches_jax():
   assert np.abs(want).max() > 0.1
 
 
+def test_noise4d_np_matches_jax_and_holds_noise4d():
+  """The port's float64 numpy reference against ble_tpu's to 1e-12, over
+  512 points on one table and on a stack of three tables; the
+  port's float32 noise4d against it within 2e-5, the bound ble_tpu holds
+  its own noise4d to (tests/test_opensimplex4d.py:62-68)."""
+  rng = np.random.RandomState(3)
+  pts = rng.uniform(-30.0, 30.0, (4, 512))
+  perm = jax_osx.perm_from_seed(99)
+  want = jax_osx.noise4d_np(perm, *pts)
+  got = opensimplex4d.noise4d_np(perm, *pts)
+  assert got.dtype == np.float64 and got.shape == (512,)
+  np.testing.assert_allclose(got, want, rtol=0.0, atol=1e-12)
+  perms = np.stack([jax_osx.perm_from_seed(s) for s in (3, 17, 99)])
+  stacked = np.broadcast_to(pts[:, None], (4, 3, 512))
+  np.testing.assert_allclose(
+      opensimplex4d.noise4d_np(perms[:, None], *stacked),
+      jax_osx.noise4d_np(perms[:, None], *stacked), rtol=0.0, atol=1e-12)
+  assert opensimplex4d.noise4d_np(perm, 0.0, 0.0, 0.0, 0.0) == 0.0
+  p32 = pts.astype(np.float32)
+  ref = opensimplex4d.noise4d_np(perm, *p32)
+  mine = opensimplex4d.noise4d(torch.from_numpy(perm),
+                               *(torch.from_numpy(c) for c in p32)).numpy()
+  np.testing.assert_allclose(mine, ref, atol=2e-5)
+  assert np.abs(ref).max() > 0.1
+
+
 def test_uv_noise_exact_matches_jax():
   """Both components of the parity noise at 64 points within 1e-5."""
   rng = np.random.RandomState(2)

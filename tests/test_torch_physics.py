@@ -5,6 +5,7 @@ start from identical states); every tolerance names its source.
 """
 
 import dataclasses
+import datetime
 import json
 import os
 
@@ -108,6 +109,17 @@ def _assert_balloon_close(got, want, rtol=5e-4):
 @pytest.fixture(scope='module')
 def world():
   return _random_world(0)
+
+
+def test_datetime_from_unix_seconds_matches_jax():
+  """Equal datetimes, UTC, for timestamps before 1970, across 2038's int32
+  edge and beyond it, and the inverse of unix_seconds_from_datetime."""
+  for s in (0, 1, -1, -86_400 * 365 - 7, 1_293_840_000, 2**31 - 1, 2**31,
+            4_102_444_800, 253_402_300_799):
+    got = time_lib.datetime_from_unix_seconds(s)
+    assert got == jax_time_lib.datetime_from_unix_seconds(s)
+    assert got.tzinfo == datetime.timezone.utc
+    assert time_lib.unix_seconds_from_datetime(got) == s
 
 
 def test_time_lib_and_pmath_match_jax():

@@ -1,6 +1,8 @@
 """The PyTorch port's wind field and simplex noise against the JAX
 package, on the CPU, for the bf16 and the float32 grid."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -134,3 +136,85 @@ def test_static_field_and_boomerang():
   np.testing.assert_array_equal(
       wind_field._boomerang_hours(torch.from_numpy(t)).numpy(),
       np.asarray(jax_wind._boomerang_hours(t.astype(np.float32))))
+
+
+@pytest.mark.parametrize('exact_noise', [False, True])
+@pytest.mark.parametrize('grid', ['bf16', 'f32'])
+def test_make_state_matches_jax(grid, exact_noise):
+  """make_state over 8 keys against ble_tpu's make_state of each key
+  (jax.vmap on the fast path; the parity mode's noise reset runs on the
+  host, one key a call): noise seeds, offsets and OpenSimplex tables
+  equal in bits, the grid equal after the dtype cast, and no slab."""
+  rng = np.random.RandomState(5)
+  grid_np = rng.normal(0.0, 10.0, (E,) + jax_wind.GRID_SHAPE).astype(
+      np.float32)
+  jkeys = jnp.stack([jax.random.PRNGKey(100 + s) for s in range(E)])
+  jdtype = jnp.float32 if grid == 'f32' else None
+  make = functools.partial(jax_wind.make_state, exact_noise=exact_noise,
+                           field_dtype=jdtype)
+  if exact_noise:
+    want = jax.tree.map(lambda *xs: np.stack(xs),
+                        *(make(jnp.asarray(g), k)
+                          for g, k in zip(grid_np, jkeys)))
+  else:
+    want = jax.vmap(make)(jnp.asarray(grid_np), jkeys)
+  got = wind_field.make_state(
+      torch.from_numpy(grid_np),
+      torch.from_numpy(np.asarray(jkeys).astype(np.int64)), exact_noise,
+      torch.float32 if grid == 'f32' else None)
+  assert got.field.dtype == (torch.float32 if grid == 'f32' else
+                             wind_field.FIELD_DTYPE)
+  np.testing.assert_array_equal(
+      bridge.numpy_from_tensor(got.field).astype(np.float32),
+      np.asarray(want.field).astype(np.float32))
+  np.testing.assert_array_equal(got.noise_seeds.numpy(),
+                                np.asarray(want.noise_seeds))
+  np.testing.assert_array_equal(
+      got.noise_offsets.numpy().view(np.uint32),
+      np.asarray(want.noise_offsets, np.float32).view(np.uint32))
+  if exact_noise:
+    np.testing.assert_array_equal(got.noise_perms.numpy(),
+                                  np.asarray(want.noise_perms))
+  else:
+    assert got.noise_perms is None and want.noise_perms is None
+  assert got.slab is None
+
+
+def test_make_state_copies_a_shared_grid_to_each_env():
+  grid = torch.from_numpy(np.random.RandomState(6).normal(
+      0.0, 10.0, jax_wind.GRID_SHAPE).astype(np.float32))
+  keys = torch.from_numpy(np.asarray(jnp.stack(
+      [jax.random.PRNGKey(s) for s in range(3)])).astype(np.int64))
+  state = wind_field.make_state(grid, keys)
+  assert state.field.shape == (3,) + jax_wind.GRID_SHAPE
+  assert torch.equal(state.field[2], grid.to(wind_field.FIELD_DTYPE))
+
+
+@pytest.mark.parametrize('component', ['u', 'v'])
+def test_harmonic_noise_matches_jax(component):
+  """harmonic_noise at 1024 random points (each its own seeds and
+  offsets) against jax.vmap of ble_tpu's, within test_noise_matches_jax's
+  1e-5, and equal to uv_noise's component within the same."""
+  n = 1024
+  rng = np.random.RandomState(7)
+  x, y = rng.uniform(-3000.0, 3000.0, (2, n)).astype(np.float32)
+  p = rng.uniform(5000.0, 14000.0, n).astype(np.float32)
+  t = rng.uniform(0.0, 240.0, n).astype(np.float32)
+  seeds = rng.randint(0, 2**31 - 1, (n, 2, 5)).astype(np.int32)
+  offsets = rng.uniform(-1.0, 1.0, (n, 2, 5, 4)).astype(np.float32)
+  c = 'uv'.index(component)
+  harmonics = (simplex_noise.U_HARMONICS, simplex_noise.V_HARMONICS)[c]
+  assert harmonics == (jax_noise.U_HARMONICS, jax_noise.V_HARMONICS)[c]
+  want = jax.vmap(lambda *a: jax_noise.harmonic_noise(*a, harmonics))(
+      x, y, p, t, seeds[:, c], offsets[:, c])
+  tx, ty, tp, tt = (torch.from_numpy(a) for a in (x, y, p, t))
+  got = simplex_noise.harmonic_noise(tx, ty, tp, tt,
+                                     torch.from_numpy(seeds[:, c]),
+                                     torch.from_numpy(offsets[:, c]),
+                                     harmonics)
+  assert got.shape == (n,) and got.dtype == torch.float32
+  np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+  both = simplex_noise.uv_noise(tx, ty, tp, tt, torch.from_numpy(seeds),
+                                torch.from_numpy(offsets))
+  np.testing.assert_allclose(got.numpy(), both[c].numpy(), atol=1e-5)
+  assert np.abs(np.asarray(want)).max() > 1.0
