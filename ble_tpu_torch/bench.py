@@ -29,7 +29,7 @@ Variables:
                      from models/loader's decoder) or 'static'.
   BENCH_RESET_CHUNK  envs a reset call (512).
   BENCH_WINDOW       K with the cache off in window mode; otherwise K is
-                     env.FIELD_CACHE_EVERY (8), the slab's cadence.
+                     EnvParams.field_cache_every (8), the slab's cadence.
   BENCH_DEVICE       'cuda' (default; raises without a card) or 'cpu',
                      where the envs are capped at 256.
 The JAX bench's BENCH_UNROLL, its scan's unroll factor, has no meaning in
@@ -88,7 +88,7 @@ def config_from_env(environ) -> BenchConfig:
   if mode not in MODES or wind not in ('generative', 'static'):
     raise ValueError(f'BENCH_MODE={mode!r} or BENCH_WIND={wind!r} unknown')
   field_cache = environ.get('BENCH_FIELD_CACHE', '1') == '1'
-  window = env_lib.FIELD_CACHE_EVERY
+  window = env_lib.EnvParams().field_cache_every
   if not field_cache and mode == 'window':
     window = int(environ.get('BENCH_WINDOW', str(window)))
   num_steps = int(environ.get('BENCH_NUM_STEPS', '32'))
@@ -137,18 +137,18 @@ def rollout(params, config: BenchConfig, state, draw):
   n = state.balloon.x_m.shape[0]
   k = config.window
   values = []
+  if config.mode == 'perstep':
+    for t in range(config.num_steps):
+      out = env_lib.step_batched(params, state, draw((n,)), global_step=t)
+      values.append((out.reward + 1e-12 * out.observation.sum(-1))[None])
+      state = out.state
+    return torch.cat(values)
   for _ in range(0, config.num_steps, k):
     if config.field_cache:
       state = env_lib.refresh_field_cache(state)
-    if config.mode == 'window':
-      out = env_lib.rollout_window(params, state, draw((k, n)))
-      values.append(out.reward + 1e-12 * out.observation.sum(-1))
-      state = out.state
-      continue
-    for _ in range(k):
-      out = env_lib.step_batched(params, state, draw((n,)))
-      values.append((out.reward + 1e-12 * out.observation.sum(-1))[None])
-      state = out.state
+    out = env_lib.rollout_window(params, state, draw((k, n)))
+    values.append(out.reward + 1e-12 * out.observation.sum(-1))
+    state = out.state
   return torch.cat(values)
 
 

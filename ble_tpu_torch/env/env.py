@@ -42,9 +42,6 @@ from ble_tpu_torch.utils import transforms
 
 NUM_ACTIONS = 3
 OBSERVATION_DIM = features_lib.NUM_FEATURES
-# Agent steps between re-centres of the field slab (exact below ~34.7 m/s);
-# divides wind_gp.REFRESH_PERIOD, so every GP chunk holds whole slab chunks.
-FIELD_CACHE_EVERY = 8
 
 
 @dataclasses.dataclass
@@ -57,9 +54,14 @@ class EnvParams:
   reward_halflife_km: float = 100.0
   # Store the forecast grid in float32 instead of bf16.
   wind_field_f32: bool = False
-  # Windowed field-slab cache (wind_field.refresh_slab), re-centered by the
-  # caller (refresh_field_cache) every FIELD_CACHE_EVERY steps.
+  # Windowed field-slab cache (wind_field.refresh_slab): per-step queries
+  # read a (4, 4) lat/lng window instead of the full 21x21 grid. Exact while
+  # the balloon moves less than one 50 km grid cell between re-centres:
+  # with `field_cache_every=8` agent steps that is sustained wind below
+  # ~34.7 m/s. step_batched keeps that cadence from the caller's
+  # global_step; the eval, the learner and the bench pass their step index.
   field_cache: bool = False
+  field_cache_every: int = 8
 
 
 @dataclasses.dataclass
@@ -311,11 +313,21 @@ def refresh_field_cache(state: EnvState) -> EnvState:
       state.wind, state.balloon.x_m, state.balloon.y_m))
 
 
-def step_batched(params: EnvParams, state: EnvState, actions) -> StepOutput:
+def step_batched(params: EnvParams, state: EnvState, actions,
+                 global_step=None, refresh: str = 'auto') -> StepOutput:
   """One agent step for every env (reference balloon_env.py:157-190 +
-  balloon_arena.py:184-202). With the slab cache on, the caller re-centres
-  the slab (refresh_field_cache) every FIELD_CACHE_EVERY steps, as
-  train/eval_lib.py does."""
+  balloon_arena.py:184-202).
+
+  global_step: the caller's step counter (a host int or a 0-d tensor),
+  driving the slab's re-centre cadence with the cache on: it re-centres
+  when global_step % params.field_cache_every == 0. None with the cache on
+  re-centres every step (exact, but a grid gather a step).
+  refresh: 'auto' (the cadence above), or 'never' for callers that
+  re-centre (refresh_field_cache) themselves, as rollout_window's do.
+  """
+  if state.wind.slab is not None and refresh != 'never':
+    if global_step is None or int(global_step) % params.field_cache_every == 0:
+      state = refresh_field_cache(state)
   was_ok = state.balloon.status == balloon_lib.STATUS_OK
   balloon = physics.simulate_step_fused(
       params.balloon, state.atmosphere, state.balloon, state.wind_u,
@@ -357,7 +369,7 @@ def rollout_window(params: EnvParams, state: EnvState, actions) -> StepOutput:
   (tests/test_torch_rollout_window.py); actions that depend on each step's
   observation need `step_batched`. The slab is not re-centred inside the
   window: with the cache on, the caller re-centres it (refresh_field_cache)
-  before each window of at most FIELD_CACHE_EVERY steps. Info has
+  before each window of at most params.field_cache_every steps. Info has
   step_batched's keys: with the cache on, slab_oob holds each step's
   position against the slab the window used. Nothing in it waits for the
   device.

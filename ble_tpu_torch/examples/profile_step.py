@@ -43,8 +43,6 @@ from ble_tpu_torch.ops import gp_window
 from ble_tpu_torch.ops import physics
 from ble_tpu_torch.utils import profiling
 
-WINDOW = env_lib.FIELD_CACHE_EVERY
-
 
 def stages(params, state, n: int, steps: int, draw):
   """{stage name: fn(iterations) -> a tensor that depends on the work}."""
@@ -60,22 +58,21 @@ def stages(params, state, n: int, steps: int, draw):
       torch.ones_like(b.x_m, dtype=torch.bool))
   lat, lng = balloon_lib.latlng(b)
   el_deg, _, flux = solar.solar_calculator(lat, lng, b.time_s)
+  k = params.field_cache_every
 
   def full(iters):
     st, acc = state, 0.0
     for t in range(iters):
-      if t % WINDOW == 0:
-        st = env_lib.refresh_field_cache(st)
-      out = env_lib.step_batched(params, st, draw((n,)))
+      out = env_lib.step_batched(params, st, draw((n,)), global_step=t)
       acc = acc + out.reward.sum() + 1e-12 * out.observation.sum()
       st = out.state
     return acc
 
   def window(iters):
     st, acc = state, 0.0
-    for _ in range(max(iters // WINDOW, 1)):
+    for _ in range(max(iters // k, 1)):
       st = env_lib.refresh_field_cache(st)
-      out = env_lib.rollout_window(params, st, draw((WINDOW, n)))
+      out = env_lib.rollout_window(params, st, draw((k, n)))
       acc = acc + out.reward.sum() + 1e-12 * out.observation.sum()
       st = out.state
     return acc
@@ -139,7 +136,7 @@ def stages(params, state, n: int, steps: int, draw):
       acc = acc + reward + done + info['battery_soc']
     return acc
 
-  return {'full step': full, f'window K={WINDOW}': window,
+  return {'full step': full, f'window K={k}': window,
           'physics (B1)': physics_stage, 'wind column': column,
           'noise': noise, 'gp step (B2)': gp_step, 'features': features_stage,
           'pressure range': range_stage, 'epilogue': epilogue}
@@ -155,13 +152,14 @@ def main(argv=None) -> dict:
   args = p.parse_args(argv)
   device = resolve_device(args.device)
   n, steps = args.num_envs, args.steps
-  if steps % WINDOW:
-    raise ValueError(f'--steps must be a multiple of {WINDOW}')
+  params = env_lib.EnvParams(field_cache=True)
+  window = params.field_cache_every
+  if steps % window:
+    raise ValueError(f'--steps must be a multiple of {window}')
 
   config = bench.BenchConfig(num_envs=n, num_steps=steps, mode='perstep',
                              field_cache=True, wind=args.wind,
-                             reset_chunk=512, window=WINDOW, device=device)
-  params = env_lib.EnvParams(field_cache=True)
+                             reset_chunk=512, window=window, device=device)
   state, _ = bench.reset_envs(params, config)
   state = env_lib.refresh_field_cache(state)
   draw = bench.action_draw(0, device)

@@ -2,11 +2,14 @@
 ble_tpu/train/eval_lib.py; reference eval/eval_lib.py:83-211).
 
 Each seed's world and policy draws are the JAX package's, from the same
-integer seed (utils/prng.py). The episode is a Python loop over steps. Every REFRESH_PERIOD (64) steps
-the GP inverse is recomputed exactly, and with the field-slab cache on the
-slab re-centers every env.FIELD_CACHE_EVERY (8) steps, as ble_tpu's nested scans
-do. Terminal envs are masked: reward accumulates through the terminal step,
-time_within_radius = steps within radius / steps taken.
+integer seed (utils/prng.py). The episode is a Python loop over steps.
+Every REFRESH_PERIOD (64) steps the GP inverse is recomputed exactly, and
+with the field-slab cache on the slab re-centers every
+env_params.field_cache_every (8) steps, as ble_tpu's nested scans do;
+where field_cache_every does not divide REFRESH_PERIOD it re-centers every
+step, as ble_tpu's eval falls back to. Terminal envs are masked: reward
+accumulates through the terminal step, time_within_radius = steps within
+radius / steps taken.
 """
 
 import dataclasses
@@ -125,6 +128,11 @@ def _build_run(env_params, field_fn, policy_init, policy_step, max_steps,
   period = wind_gp_lib.REFRESH_PERIOD
   radius_km = env_params.station_keeping_radius_km
   n_chunked = (max_steps // period) * period
+  # The slab's re-centre cadence (step_batched's global_step) holds only
+  # where the GP chunk holds whole cache chunks; otherwise, and in the tail
+  # after the last whole chunk, the slab re-centers every step
+  # (ble_tpu/train/eval_lib.py:117-127).
+  cadence = period % env_params.field_cache_every == 0
 
   def run(params, seeds, env_state=None, obs=None):
     seeds = [int(s) for s in seeds]
@@ -157,11 +165,9 @@ def _build_run(env_params, field_fn, policy_init, policy_step, max_steps,
         if t < n_chunked:
           env_state = dataclasses.replace(
               env_state, gp=wind_gp_lib.refresh(env_state.gp))
-      # The tail after the last whole GP chunk re-centers every step.
-      if env_params.field_cache and (t % env_lib.FIELD_CACHE_EVERY == 0 or
-                                     t >= n_chunked):
-        env_state = env_lib.refresh_field_cache(env_state)
-      out = env_lib.step_batched(env_params, env_state, action)
+      out = env_lib.step_batched(
+          env_params, env_state, action,
+          global_step=t if cadence and t < n_chunked else None)
       b = out.state.balloon
       dist_km = torch.sqrt(b.x_m * b.x_m + b.y_m * b.y_m) / 1000.0
       reward = reward + torch.where(active, out.reward,

@@ -354,13 +354,14 @@ def learn(config: TrainConfig, core: AgentCore, learner,
 
 
 def env_step(config: TrainConfig, env_params: env_lib.EnvParams,
-             ts: TrainState, grad_transform=None
+             ts: TrainState, grad_transform=None, global_step=None
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
   """One lockstep actor step and its learner updates (ble_tpu
   learner.py:304-408): actions, MarcoPolo, step_batched, replay.add, then
   the train steps once replay can sample, or, for an online agent, its
-  inline step on the transition just completed. The slab cache is
-  re-centred by the caller (run_episode_chunk)."""
+  inline step on the transition just completed. global_step, the step's
+  index in its chunk, sets step_batched's slab re-centre cadence (None
+  re-centres every step)."""
   core = make_agent_core(config)
   network = core.params_of(ts.learner)
   if core.actor_select is not None:
@@ -375,7 +376,8 @@ def env_step(config: TrainConfig, env_params: env_lib.EnvParams,
   else:
     mp, actions = ts.mp, rl_actions
 
-  out = env_lib.step_batched(env_params, ts.env_state, actions)
+  out = env_lib.step_batched(env_params, ts.env_state, actions,
+                             global_step=global_step)
 
   terminal = ts.active & out.done
   # Stored-state replay keeps ts.actor, the carry BEFORE consuming ts.obs:
@@ -437,17 +439,16 @@ def run_episode_chunk(config: TrainConfig, env_params: env_lib.EnvParams,
 
   The chunk starts with one exact GP refresh (one batched Cholesky per
   env), which washes out the incremental updates' float32 drift. With the
-  slab cache on, the slab is re-centred before every env.FIELD_CACHE_EVERY
-  steps, the tail included: ble_tpu's nested scans do the same.
+  slab cache on, step t passes global_step=t, so the slab is re-centred
+  before every env_params.field_cache_every steps, the tail included:
+  ble_tpu's nested scans do the same.
   """
   ts = dataclasses.replace(ts, env_state=dataclasses.replace(
       ts.env_state, gp=wind_gp.refresh(ts.env_state.gp)))
   steps = []
   for t in range(num_steps):
-    if env_params.field_cache and t % env_lib.FIELD_CACHE_EVERY == 0:
-      ts = dataclasses.replace(
-          ts, env_state=env_lib.refresh_field_cache(ts.env_state))
-    ts, metrics = env_step(config, env_params, ts, grad_transform)
+    ts, metrics = env_step(config, env_params, ts, grad_transform,
+                           global_step=t)
     steps.append(metrics)
   return ts, {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
 

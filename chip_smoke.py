@@ -70,6 +70,13 @@ Phases (each raises on a failure, so the exit code is then not 0):
              checkpoint's network (the eval CLI, that is
              eval_lib.evaluate over learner.make_eval_policy, at the same
              batch, beside the last eval); the eval's env-steps/s.
+  params     step_batched's own slab cadence: 16 steps of
+             step_batched(global_step=t) with field_cache_every = 4 from
+             main's reset state (E = 4096) launch B1 and B2 once a step,
+             leave no balloon outside its slab and equal in bits the same
+             steps with refresh='never' and a re-centre by hand every 4
+             steps. With phase kernels, B1 and B2 are also checked at
+             this path's inputs.
   window     the window route: env.rollout_window at K = 8 from main's
              initial state (E = 4096, generative fields, slab cache on):
              one window against 8 step_batched calls from the same state
@@ -213,8 +220,8 @@ DEV = 'cuda'
 E = 4096
 MAIN_STEPS = 128
 DEFAULT_PHASES = ('device', 'build', 'kernels', 'reference', 'worlds', 'gym',
-                  'pair', 'main', 'api', 'window', 'train', 'agents',
-                  'distributed', 'vae', 'timing')
+                  'pair', 'main', 'api', 'params', 'window', 'train',
+                  'agents', 'distributed', 'vae', 'timing')
 # Phase worlds: the seeds and steps of its StationSeeker eval and of the
 # random agent's actions held against the JAX package's values
 # (tests/torch_jax_worlds.json, written by tests/test_torch_worlds.py). The
@@ -1515,7 +1522,7 @@ def phase_pair(field_fn) -> dict:
     state = env_lib.refresh_field_cache(state)
     action = station_seeker.pick_action(obs)
     out = env_lib.step(params, state, action, refresh='never')
-    ref = env_lib.step_batched(params, state, action)
+    ref = env_lib.step_batched(params, state, action, refresh='never')
     check(bool(torch.isfinite(out.observation).all()), 'pair obs not finite')
     check(torch.equal(out.reward, ref.reward), 'pair rewards differ')
     worst = max(worst, float((out.observation - ref.observation).abs().max()))
@@ -1768,6 +1775,80 @@ def phase_api(params, state) -> dict:
   return {'column': column, 'cli': cli}
 
 
+# Phase params: step_batched's own slab cadence (global_step with
+# field_cache_every = PARAMS_CACHE_EVERY) on the main path's reset state
+# for PARAMS_STEPS steps.
+PARAMS_STEPS = 16
+PARAMS_CACHE_EVERY = 4
+
+
+def _same_step(a, b) -> bool:
+  return (torch.equal(a.observation, b.observation) and
+          torch.equal(a.reward, b.reward) and torch.equal(a.done, b.done) and
+          set(a.info) == set(b.info) and
+          all(torch.equal(a.info[k], b.info[k]) for k in a.info))
+
+
+def phase_params(params, state) -> dict:
+  """PARAMS_STEPS steps of step_batched with global_step=t and
+  field_cache_every = PARAMS_CACHE_EVERY from the main path's reset state
+  (E = 4096 generative envs, slab cache on), every count set to 0 just
+  before and read just after: B1 and B2 once a step, B3-B5 never, no
+  balloon outside its slab. The same steps with refresh='never' and a
+  re-centre by hand every PARAMS_CACHE_EVERY steps must give the same bits
+  (each step's outputs and the final state). Returns the launches, the
+  final state and B2's inputs at the last step."""
+  from ble_tpu_torch.env import env as env_lib
+  t_start = time.perf_counter()
+  cadence = dataclasses.replace(params, field_cache_every=PARAMS_CACHE_EVERY)
+  gen = torch.Generator(device=DEV).manual_seed(13)
+  actions = [torch.randint(0, 3, (E,), generator=gen, device=DEV,
+                           dtype=torch.int32) for _ in range(PARAMS_STEPS)]
+  outs, oob, b2_inputs = [], [], []
+  torch.cuda.synchronize()
+  counts = _reset_counts()
+  with _last_b2_inputs(b2_inputs):
+    st = state
+    for t, a in enumerate(actions):
+      out = env_lib.step_batched(cadence, st, a, global_step=t)
+      oob.append(out.info['slab_oob'].sum())
+      st = out.state
+      outs.append(out._replace(state=None))
+    torch.cuda.synchronize()
+  launches = counts()
+  final = st
+  st, same = state, []
+  for t, a in enumerate(actions):
+    if t % PARAMS_CACHE_EVERY == 0:
+      st = env_lib.refresh_field_cache(st)
+    ref = env_lib.step_batched(cadence, st, a, refresh='never')
+    same.append(_same_step(outs[t], ref))
+    st = ref.state
+  leaves = []
+  env_lib.tree_map(lambda x, y: leaves.append(torch.equal(x, y)), final, st)
+  oob_envs = int(torch.stack(oob).sum())
+  cadence_s = time.perf_counter() - t_start
+  log(f'params: step_batched(global_step=t), field_cache_every='
+      f'{PARAMS_CACHE_EVERY}, E={E}, {PARAMS_STEPS} steps: launches '
+      f'{json.dumps(launches)}; envs outside their slab over the steps '
+      f'{oob_envs}; equal in bits to a re-centre by hand: steps '
+      f'{sum(same)}/{len(same)}, final state leaves '
+      f'{sum(leaves)}/{len(leaves)}; {cadence_s:.1f} s')
+  check(launches['physics'] == PARAMS_STEPS and
+        launches['gp_window'] == PARAMS_STEPS,
+        f'params: B1 and B2 not launched once a step: {launches}')
+  check(launches['gp_observe'] == 0 and launches['gp_query'] == 0,
+        'params: B3-B5 ran')
+  check(oob_envs == 0, f'params: {oob_envs} balloon-steps outside the slab')
+  check(all(same) and all(leaves),
+        'params: the cadence departs from a re-centre by hand')
+  log(f'params: phase {time.perf_counter() - t_start:.1f} s; '
+      f'{nvidia_smi_line()}')
+  return {'launches': {'physics_params': launches['physics'],
+                       'gp_window_params': launches['gp_window']},
+          'state': final, 'b2': b2_inputs}
+
+
 WINDOW_K = 8
 WINDOW_COUNT = 16
 # The window against K sequential steps: tests/test_rollout_window.py:53-66
@@ -1786,7 +1867,7 @@ def check_window_agreement(params, state, actions, label: str) -> dict:
   outs = []
   st = state
   for a in actions:
-    outs.append(env_lib.step_batched(params, st, a))
+    outs.append(env_lib.step_batched(params, st, a, refresh='never'))
     st = outs[-1].state
   seq = lambda f: torch.stack([f(o) for o in outs])
   want_obs = seq(lambda o: o.observation)
@@ -3718,7 +3799,7 @@ def time_b2(gp_state, obs=None) -> dict:
 
 def phase_timing(params, state, gp_state, gym_state, train_state,
                  train_b2, window_out, agents_out=None,
-                 api: bool = False) -> dict:
+                 api: bool = False, params_out=None) -> dict:
   """Each kernel at the batch of the path its launches are counted on:
   B1 and B2 at E = 4096 (main); B1 on the window run's final state and B2
   at K = 8 on its last window's GP state and observations, E = 4096
@@ -3727,11 +3808,16 @@ def phase_timing(params, state, gp_state, gym_state, train_state,
   E = 4096 (pair); B1 on the train run's final env state and B2 on the
   train run's own GP state and observations, E = 1024 (train); the same
   on the r2d2 run of phase agents, E = 1024 (agents); B5 on the main
-  path's reset state, E = 4096 (api)."""
+  path's reset state, E = 4096 (api); B1 on the params run's final state
+  and B2 on its last step's GP state and observations, E = 4096
+  (params)."""
   out = {'physics': time_b1(params, state)}
   if api:
     b = state.balloon
     out['gp_query_api'] = time_b5(state.gp, b.x_m, b.y_m, b.time_elapsed_s)
+  if params_out is not None:
+    out['physics_params'] = time_b1(params, params_out['state'])
+    out['gp_window_params'] = time_b2(*params_out['b2'])
   if window_out is not None:
     out['physics_window'] = time_b1(params, window_out['state'])
     out['gp_window_window'] = time_b2(*window_out['b2'])
@@ -3932,12 +4018,12 @@ def main(argv=None) -> int:
 
   params = env_lib.EnvParams(field_cache=True)
   field_fn = state0 = obs0 = gp_state = None
-  if phases & {'kernels', 'pair', 'main', 'api', 'window', 'train',
-                'agents', 'distributed', 'timing', 'numerics', 'profile',
-                'splits'}:
-    field_fn = generative_field_fn()
-  if phases & {'kernels', 'main', 'api', 'window', 'timing', 'numerics',
+  if phases & {'kernels', 'pair', 'main', 'api', 'params', 'window',
+                'train', 'agents', 'distributed', 'timing', 'numerics',
                 'profile', 'splits'}:
+    field_fn = generative_field_fn()
+  if phases & {'kernels', 'main', 'api', 'params', 'window', 'timing',
+                'numerics', 'profile', 'splits'}:
     state0, obs0 = reset_main(params, field_fn)
   errs = {}
   if phases & {'kernels', 'timing'}:
@@ -3995,6 +4081,15 @@ def main(argv=None) -> int:
     errs['gp_query_api'] = {
         'max_abs_err': api_out['column']['max_abs_err']}
     mark('api')
+  params_out = None
+  if 'params' in phases:
+    params_out = phase_params(params, state0)
+    launches.update(params_out['launches'])
+    if 'kernels' in phases:
+      errs['physics_params'] = check_b1(params, params_out['state'])
+      errs['gp_window_params'] = check_b2(params_out['b2'][0], 1,
+                                          params_out['b2'][1])
+    mark('params')
   window_out = None
   if 'window' in phases:
     window_out = phase_window(params, state0)
@@ -4035,7 +4130,7 @@ def main(argv=None) -> int:
   if 'timing' in phases:
     timing = phase_timing(params, state0, gp_state, gym_state, train_state,
                           train_b2, window_out, agents_out,
-                          api=api_out is not None)
+                          api=api_out is not None, params_out=params_out)
     if dist_out is not None:
       timing.update(dist_out['timing'])
     mark('timing')
@@ -4069,6 +4164,12 @@ def main(argv=None) -> int:
       'gp_query_gym': b5 + ('gym, E=1',),
       'gp_query_pair': b5 + (f'pair, E={E}',),
       'gp_query_api': b5 + (f'api (features.wind_column_features), E={E}',),
+      'physics_params': b1 + (f'params (step_batched global_step, '
+                              f'field_cache_every={PARAMS_CACHE_EVERY}), '
+                              f'E={E}',),
+      'gp_window_params': b2 + (f'params (step_batched global_step, '
+                                f'field_cache_every={PARAMS_CACHE_EVERY}), '
+                                f'E={E}',),
   }
   for name, (source, replaces, path) in sources.items():
     row = {'name': name, 'route': 'cuda', 'source': source,

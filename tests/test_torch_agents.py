@@ -152,11 +152,10 @@ def test_env_step_matches_jax_learner(worlds, agent, tmp_path, monkeypatch):
   ts.env_state = dataclasses.replace(
       ts.env_state, gp=wind_gp.refresh(ts.env_state.gp))
   for t in range(STEPS):
-    if t % env_lib.FIELD_CACHE_EVERY == 0:
+    if t % params.field_cache_every == 0:
       jts = jts.replace(env_state=jax_env.refresh_field_cache(jts.env_state))
-      ts.env_state = env_lib.refresh_field_cache(ts.env_state)
     jts, jmetrics = jstep(jts)
-    ts, metrics = learner.env_step(cfg, params, ts)
+    ts, metrics = learner.env_step(cfg, params, ts, global_step=t)
     np.testing.assert_allclose(float(metrics['reward']),
                                float(jmetrics['reward']), atol=1e-3)
     assert int(metrics['terminals']) == int(jmetrics['terminals'])

@@ -76,7 +76,7 @@ def test_bench_variables():
   assert (config.num_envs, config.num_steps, config.mode, config.wind,
           config.field_cache, config.reset_chunk, config.window) == (
               bench.CPU_MAX_ENVS, 32, 'window', 'generative', True, 512,
-              env_lib.FIELD_CACHE_EVERY)
+              env_lib.EnvParams().field_cache_every)
   # BENCH_WINDOW sets K only in window mode with the cache off.
   assert bench.config_from_env(dict(_CPU, BENCH_WINDOW='4')).window == 8
   assert bench.config_from_env(dict(

@@ -235,11 +235,11 @@ def test_slice_closed_loop_station_seeker(worlds):
     if t % wind_gp.REFRESH_PERIOD == 0:
       jstate = jrefresh_gp(jstate)
       state = dataclasses.replace(state, gp=wind_gp.refresh(state.gp))
-    if t % env_lib.FIELD_CACHE_EVERY == 0:
+    if t % params.field_cache_every == 0:
       jstate = jrefresh_slab(jstate)
       state = env_lib.refresh_field_cache(state)
     jout = jstep(jstate, jaction)
-    out = env_lib.step_batched(params, state, action)
+    out = env_lib.step_batched(params, state, action, refresh='never')
     np.testing.assert_allclose(out.reward.numpy(), np.asarray(jout.reward),
                                atol=1e-3, err_msg=f'step {t}')
     np.testing.assert_allclose(out.observation.sum(-1).numpy(),

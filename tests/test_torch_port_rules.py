@@ -176,6 +176,335 @@ def test_each_exception_is_absent_from_the_port():
     assert set(names) <= theirs - ours, (module, sorted(set(names) & ours))
 
 
+# Parameters and config fields: every parameter of a public function or of
+# a public method of a public class in a ported ble_tpu module is a
+# parameter of the port's counterpart, and every field of its dataclasses,
+# NamedTuples and flax modules is a field or constructor argument of the
+# port's class, with the same default where ble_tpu's is a literal. Names
+# and classes the port lacks altogether are the name test's (_NOT_IN_PORT).
+
+_FLAX_PARAMS = ('flax params-first: the port\'s nn.Module (or its '
+                'LearnerState) holds the weights')
+_FLAX_STATE = ('a flax state field: the port keeps the nn.Module and its '
+               'torch optimizer')
+_GENERATOR = ('a jax.random key: the port draws training\'s randomness from '
+              'a torch.Generator (ROADMAP, RNG)')
+_KEYS = 'batch-first: the port takes keys (E, 2), one row an env'
+_MESH = ('a jax.sharding mesh: the port splits envs by rank '
+         '(parallel/distributed.py)')
+_XLA = 'XLA-only: the port has one physics route, B1 or its plain version'
+_NO_CALLER = 'no caller in ble_tpu passes it: an option with no user'
+
+_PARAMS_NOT_IN_PORT = {
+    'agents/dqn.py': {
+        'init.key': _GENERATOR,
+        'select_action.params': _FLAX_PARAMS,
+        'select_action.key': _GENERATOR,
+        'mse_loss.params': _FLAX_PARAMS,
+        'mse_loss.target_params': _FLAX_PARAMS,
+    },
+    'agents/marco_polo.py': {
+        'begin_episode.key': _GENERATOR,
+        'step.key': _GENERATOR,
+    },
+    'agents/mlp_agent.py': {
+        'init.key': _GENERATOR,
+        'step.key': 'unused by ble_tpu\'s step, which acts greedily',
+        'online_init.key': _GENERATOR,
+        'online_select.params': _FLAX_PARAMS,
+        'online_select.key': _GENERATOR,
+        'MLPAgentState.params': _FLAX_STATE,
+        'MLPAgentState.opt_state': _FLAX_STATE,
+    },
+    'agents/networks.py': {
+        'LstmQuantileNetwork.initial_state.rng': 'flax RNG: the zero carry '
+                                                 'draws nothing',
+        'LstmQuantileNetwork.initial_state.batch_shape': 'batch-first: '
+                                                         'initial_state(n, '
+                                                         'device)',
+    },
+    'agents/perciatelli44.py': {
+        'make_policy.params': _FLAX_PARAMS,
+    },
+    'agents/qrdqn.py': {
+        'init.key': _GENERATOR,
+        'q_values.config': 'the network carries the config\'s widths',
+        'q_values.params': _FLAX_PARAMS,
+        'select_action.params': _FLAX_PARAMS,
+        'select_action.key': _GENERATOR,
+        'quantile_loss.params': _FLAX_PARAMS,
+        'quantile_loss.target_params': _FLAX_PARAMS,
+        'LearnerState.params': _FLAX_STATE,
+        'LearnerState.target_params': _FLAX_STATE,
+        'LearnerState.opt_state': _FLAX_STATE,
+        'QrDqnConfig.update_period': 'read nowhere in ble_tpu: the learner '
+                                     'takes TrainConfig\'s samples_per_'
+                                     'insert cadence',
+    },
+    'agents/r2d2.py': {
+        'init.key': _GENERATOR,
+        'actor_init.config': 'the network carries the config\'s widths: '
+                             'actor_init(network, num_envs, device)',
+        'actor_init.batch_shape': 'batch-first: actor_init(network, '
+                                  'num_envs, device)',
+        'actor_select.params': _FLAX_PARAMS,
+        'actor_select.key': _GENERATOR,
+        'sequence_loss.params': _FLAX_PARAMS,
+        'sequence_loss.target_params': _FLAX_PARAMS,
+    },
+    'agents/random_walk.py': {
+        'init.key': _KEYS,
+        'step.key': 'batch-first: step takes the normals z (E,) drawn from '
+                    'the step keys by the eval (draw)',
+    },
+    'agents/replay.py': {
+        'init.obs_dtype': _NO_CALLER,
+        'sample.key': _GENERATOR,
+        'sample_sequence.key': _GENERATOR,
+    },
+    'env/atmosphere.py': {
+        'reset.key': _KEYS,
+    },
+    'env/balloon.py': {
+        'substep_math.at_pressure_fn': 'the port passes the atmosphere and '
+                                       'looks the pressure up itself',
+    },
+    'env/env.py': {
+        'reset.key': 'batch-first: reset takes integer seeds (reset_keys '
+                     'takes keys)',
+        'reset_from_field.key': _KEYS,
+        'step.action': 'batch-first: actions (E,)',
+        'step_batched.physics': _XLA,
+        'rollout_window.physics': _XLA,
+        'make_field_fn.decoder_params': 'the decoder is an nn.Module '
+                                        'holding its weights (decoder)',
+    },
+    'env/parity_reset.py': {
+        'parity_reset.field': _NO_CALLER,
+        'parity_reset.field_dtype': _NO_CALLER,
+        'parity_reset.exact_noise': _NO_CALLER,
+    },
+    'env/simplex_noise.py': {
+        'simplex4d.x': 'batch-first: one coords tensor (..., 4)',
+        'simplex4d.y': 'batch-first: one coords tensor (..., 4)',
+        'simplex4d.z': 'batch-first: one coords tensor (..., 4)',
+        'simplex4d.w': 'batch-first: one coords tensor (..., 4)',
+    },
+    'env/wind_field.py': {
+        'reset_noise.key': _KEYS,
+        'reset_noise_exact.noise_key': _KEYS,
+        'make_state.key': _KEYS,
+    },
+    'generative/train_vae.py': {
+        'evaluate.params': 'the model is an nn.Module holding its weights '
+                           '(model)',
+    },
+    'generative/vae.py': {
+        'sample_field.params': 'the decoder is an nn.Module holding its '
+                               'weights (decoder)',
+        'sample_field.key': _KEYS,
+        'WindFieldVAE.setup': 'flax\'s submodule hook: the port builds them '
+                              'in __init__',
+    },
+    'parallel/distributed.py': {
+        'build_distributed_step.mesh': _MESH,
+        'build_distributed_reset.mesh': _MESH,
+        'init_distributed_train_state.key': 'an integer seed, as '
+                                            'learner.init_train_state',
+        'init_distributed_train_state.mesh': _MESH,
+    },
+    'parallel/tensor_parallel.py': {
+        'param_specs.params': _FLAX_PARAMS,
+        'shard_params.params': _FLAX_PARAMS,
+    },
+    'train/eval_lib.py': {
+        'build_eval_fn.mesh': _MESH,
+        'build_eval_fn._parametric': 'the port has build_parametric_eval_fn '
+                                     'for it',
+    },
+    'train/learner.py': {
+        'init_train_state.key': 'an integer seed: worlds by seed, the '
+                                'learner\'s draws from a torch.Generator',
+        'selective_reset.fields': 'fresh worlds from field_fn, by the '
+                                  'world-seed counter',
+        'run_episode_chunk.unroll': 'lax.scan\'s unroll: eager PyTorch has '
+                                    'no scan',
+        'make_eval_policy.learner_params': _FLAX_PARAMS,
+        'TrainState.key': _GENERATOR,
+    },
+    'utils/sampling.py': {
+        'sample_location.key': _KEYS,
+        'sample_time.key': _KEYS,
+        'sample_pressure.key': _KEYS,
+        'sample_upwelling_infrared.key': _KEYS,
+        'sample_initial_offset.key': _KEYS,
+    },
+}
+
+
+def _arg_names(fn) -> list:
+  a = fn.args
+  return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs
+          if x.arg not in ('self', 'cls')]
+
+
+def _is_config_class(node) -> bool:
+  """A dataclass (dataclasses or flax.struct), a NamedTuple or a flax /
+  torch module, whose annotated names are its fields."""
+  marks = [ast.unparse(d) for d in node.decorator_list]
+  marks += [ast.unparse(b) for b in node.bases]
+  return any('dataclass' in m or m.endswith('NamedTuple') or
+             m.endswith('Module') for m in marks)
+
+
+_NO_DEFAULT = object()
+_NOT_LITERAL = object()
+
+
+def _default(value):
+  """A field's default: the literal, _NOT_LITERAL, or _NO_DEFAULT."""
+  if value is None:
+    return _NO_DEFAULT
+  if isinstance(value, ast.Call):  # struct.field / dataclasses.field
+    kw = {k.arg: k.value for k in value.keywords}
+    if 'default' not in kw:
+      return _NOT_LITERAL
+    value = kw['default']
+  try:
+    return ast.literal_eval(value)
+  except ValueError:
+    return _NOT_LITERAL
+
+
+def _api(source: str):
+  """(signatures, fields, configs) of a module's source: {'fn' or
+  'Class.method': parameter names} over its public functions and its
+  public classes' public methods (and __init__), {'Class': {field:
+  default}} over its public classes, a constructor's parameters counting
+  as fields, and the names of its config classes."""
+  tree = ast.parse(source)
+  signatures, fields, configs = {}, {}, set()
+  for node in tree.body:
+    if (not isinstance(node, (ast.FunctionDef, ast.ClassDef)) or
+        node.name.startswith('_')):
+      continue
+    if isinstance(node, ast.FunctionDef):
+      signatures[node.name] = _arg_names(node)
+    else:
+      own = fields[node.name] = {}
+      for item in node.body:
+        if isinstance(item, ast.FunctionDef) and (
+            not item.name.startswith('_') or item.name == '__init__'):
+          signatures[f'{node.name}.{item.name}'] = _arg_names(item)
+          if item.name == '__init__':
+            a = item.args
+            args = a.posonlyargs + a.args
+            defaults = [None] * (len(args) - len(a.defaults)) + a.defaults
+            own.update({x.arg: _default(d) for x, d in
+                        zip(args + a.kwonlyargs,
+                            defaults + a.kw_defaults)
+                        if x.arg != 'self'})
+        elif (isinstance(item, ast.AnnAssign) and
+              isinstance(item.target, ast.Name)):
+          own[item.target.id] = _default(item.value)
+      if _is_config_class(node):
+        configs.add(node.name)
+  return signatures, fields, configs
+
+
+def _gaps(theirs: str, ours: str):
+  """(parameters, fields) of ble_tpu's module source `theirs` that the
+  port's `ours` lacks, as 'fn.param' / 'Class.method' names and
+  'Class.field' names, the latter with ' default' where both have the
+  field and ble_tpu's literal default differs."""
+  jsig, jfields, jconfigs = _api(theirs)
+  psig, pfields, _ = _api(ours)
+  params = set()
+  for name, args in jsig.items():
+    if name.endswith('.__init__'):
+      continue  # Constructors' parameters are fields.
+    if name in psig:
+      params |= {f'{name}.{a}' for a in args if a not in psig[name]}
+    elif '.' in name and name.split('.')[0] in pfields:
+      params.add(name)  # A method the port's class lacks.
+  fields = set()
+  for cls in jconfigs & set(pfields):
+    for field, default in jfields[cls].items():
+      if field not in pfields[cls]:
+        fields.add(f'{cls}.{field}')
+      elif (default not in (_NO_DEFAULT, _NOT_LITERAL) and
+            pfields[cls][field] != default):
+        fields.add(f'{cls}.{field} default')
+  return params, fields
+
+
+def _api_gaps(module: str):
+  sources = []
+  for root in (os.path.join(_ROOT, 'ble_tpu'), _PKG):
+    with open(os.path.join(root, module)) as f:
+      sources.append(f.read())
+  return _gaps(*sources)
+
+
+@pytest.mark.parametrize('module', _PORTED_MODULES)
+def test_port_takes_every_parameter(module):
+  """Each parameter of ble_tpu's public functions and methods is one of
+  the port counterpart's, but those of _PARAMS_NOT_IN_PORT."""
+  params, _ = _api_gaps(module)
+  missing = params - set(_PARAMS_NOT_IN_PORT.get(module, {}))
+  assert not missing, sorted(missing)
+
+
+@pytest.mark.parametrize('module', _PORTED_MODULES)
+def test_port_has_every_config_field_and_default(module):
+  """Each field of ble_tpu's dataclasses, NamedTuples and modules is one
+  of the port class's, with an equal default where ble_tpu's is a literal,
+  but those of _PARAMS_NOT_IN_PORT."""
+  _, fields = _api_gaps(module)
+  missing = fields - set(_PARAMS_NOT_IN_PORT.get(module, {}))
+  assert not missing, sorted(missing)
+
+
+def test_each_parameter_exception_is_absent_from_the_port():
+  """Every entry of _PARAMS_NOT_IN_PORT names a parameter, method or field
+  of ble_tpu that the port really lacks."""
+  for module, names in _PARAMS_NOT_IN_PORT.items():
+    assert module in _PORTED_MODULES, module
+    params, fields = _api_gaps(module)
+    assert set(names) <= params | fields, (
+        module, sorted(set(names) - params - fields))
+
+
+def test_parameter_scan_sees_what_it_should():
+  """The scan on known gaps: a missing parameter, method, field and a
+  changed literal default; a flax field's default read through
+  struct.field; a constructor's parameters counted as fields."""
+  jax_src = (
+      'import flax.struct as struct\n'
+      '@struct.dataclass\n'
+      'class Config:\n'
+      '  a: int = 1\n'
+      '  b: int = struct.field(pytree_node=False, default=8)\n'
+      '  c: float = 0.5\n'
+      'class Net(nn.Module):\n'
+      '  width: int = 4\n'
+      '  def setup(self): pass\n'
+      'def f(x, y=2, *, z=None): pass\n'
+      'def _private(q): pass\n')
+  port_src = (
+      'import dataclasses\n'
+      '@dataclasses.dataclass\n'
+      'class Config:\n'
+      '  a: int = 1\n'
+      '  b: int = 7\n'
+      'class Net(torch.nn.Module):\n'
+      '  def __init__(self, width: int = 4): pass\n'
+      'def f(x, y=2): pass\n')
+  params, fields = _gaps(jax_src, port_src)
+  assert params == {'f.z', 'Net.setup'}
+  assert fields == {'Config.b default', 'Config.c'}
+
+
 def test_agents_package_reexports_the_registry():
   """from ble_tpu_torch.agents import create_agent, available_agents works
   as the JAX package's import does, and both registries list the same

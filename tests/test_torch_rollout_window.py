@@ -39,7 +39,7 @@ def _actions(seed, k=K):
 def _sequential(params, state, actions):
   outs = []
   for a in actions:
-    outs.append(env_lib.step_batched(params, state, a))
+    outs.append(env_lib.step_batched(params, state, a, refresh='never'))
     state = outs[-1].state
   stack = lambda key: torch.stack([getattr(o, key) for o in outs])
   info = {k: torch.stack([o.info[k] for o in outs]) for k in outs[0].info}
