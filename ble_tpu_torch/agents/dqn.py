@@ -26,6 +26,7 @@ import torch
 
 from ble_tpu_torch.agents import networks
 from ble_tpu_torch.agents import qrdqn
+from ble_tpu_torch.utils import profiling
 
 LearnerState = qrdqn.LearnerState
 
@@ -105,8 +106,9 @@ def train_step(config: DqnConfig, state: LearnerState,
                ) -> Tuple[LearnerState, Dict[str, torch.Tensor]]:
   """One Adam step and the periodic target sync (ble_tpu dqn.py:87-104),
   in place; returns (state, metrics) with `loss` detached."""
-  loss, metrics = mse_loss(config, state.network, state.target_network,
-                           batch)
+  with profiling.span('dqn.loss'):
+    loss, metrics = mse_loss(config, state.network, state.target_network,
+                             batch)
   qrdqn.optimizer_step(state, loss, config.learning_rate,
                        config.target_update_period, grad_transform)
   metrics['loss'] = loss.detach()

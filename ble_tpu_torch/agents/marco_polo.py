@@ -12,6 +12,7 @@ import dataclasses
 import torch
 
 from ble_tpu_torch.agents import random_walk
+from ble_tpu_torch.utils import profiling
 
 RL_PHASE_STEPS = 80  # 4 h at 3-minute steps (marco_polo_exploration.py:35).
 EXPLORATORY_PHASE_STEPS = 40  # 2 h (marco_polo_exploration.py:36).
@@ -46,27 +47,28 @@ def step(state: MarcoPoloState, observation, rl_action,
 
   Returns (new_state, action).
   """
-  phase_steps = state.phase_steps + 1
-  expired = torch.where(state.exploratory_phase,
-                        phase_steps >= EXPLORATORY_PHASE_STEPS,
-                        phase_steps >= RL_PHASE_STEPS)
-  flip = state.exploratory_episode & expired
-  exploratory_phase = state.exploratory_phase ^ flip
-  phase_steps = torch.where(flip, 0, phase_steps)
+  with profiling.span('marco_polo.step'):
+    phase_steps = state.phase_steps + 1
+    expired = torch.where(state.exploratory_phase,
+                          phase_steps >= EXPLORATORY_PHASE_STEPS,
+                          phase_steps >= RL_PHASE_STEPS)
+    flip = state.exploratory_episode & expired
+    exploratory_phase = state.exploratory_phase ^ flip
+    phase_steps = torch.where(flip, 0, phase_steps)
 
-  # The random-walk agent only advances when queried
-  # (marco_polo_exploration.py:88-93).
-  rw_next, rw_action = random_walk.step_from_generator(state.rw, observation,
-                                                       generator)
-  rw_state = random_walk.RandomWalkState(**{
-      f.name: torch.where(exploratory_phase, getattr(rw_next, f.name),
-                          getattr(state.rw, f.name))
-      for f in dataclasses.fields(rw_next)})
+    # The random-walk agent only advances when queried
+    # (marco_polo_exploration.py:88-93).
+    rw_next, rw_action = random_walk.step_from_generator(state.rw, observation,
+                                                         generator)
+    rw_state = random_walk.RandomWalkState(**{
+        f.name: torch.where(exploratory_phase, getattr(rw_next, f.name),
+                            getattr(state.rw, f.name))
+        for f in dataclasses.fields(rw_next)})
 
-  action = torch.where(exploratory_phase, rw_action,
-                       rl_action.to(rw_action.dtype))
-  return MarcoPoloState(
-      exploratory_episode=state.exploratory_episode,
-      exploratory_phase=exploratory_phase,
-      phase_steps=phase_steps.to(torch.int32),
-      rw=rw_state), action
+    action = torch.where(exploratory_phase, rw_action,
+                         rl_action.to(rw_action.dtype))
+    return MarcoPoloState(
+        exploratory_episode=state.exploratory_episode,
+        exploratory_phase=exploratory_phase,
+        phase_steps=phase_steps.to(torch.int32),
+        rw=rw_state), action

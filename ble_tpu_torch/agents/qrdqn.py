@@ -30,6 +30,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ble_tpu_torch.agents import networks
+from ble_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,8 +160,9 @@ def select_action(config: QrDqnConfig, network: networks.QuantileNetwork,
                   epsilon: float = 0.0) -> torch.Tensor:
   """Epsilon-greedy argmax over mean quantile values (batched): (B,) int32.
   Exploration draws from `generator`, on its device."""
-  return epsilon_greedy(q_values(network, obs), config.num_actions,
-                        generator, epsilon)
+  with profiling.span('qrdqn.select_action'):
+    return epsilon_greedy(q_values(network, obs), config.num_actions,
+                          generator, epsilon)
 
 
 def quarantine(batch: Dict[str, torch.Tensor]):
@@ -245,18 +247,20 @@ def optimizer_step(state: LearnerState, loss: torch.Tensor,
   `grad_transform(grads)` may reduce the list of gradients in place across
   processes (the data-parallel learner).
   """
-  trained = [p for p in state.network.parameters() if p.requires_grad]
-  for p in trained:
-    p.grad = None
-  loss.backward()
+  with profiling.span('optimizer.backward'):
+    trained = [p for p in state.network.parameters() if p.requires_grad]
+    for p in trained:
+      p.grad = None
+    loss.backward()
   if grad_transform is not None:
     grad_transform([p.grad for p in trained])
-  for group in state.optimizer.param_groups:
-    group['lr'] = learning_rate
-  state.optimizer.step()
+  with profiling.span('optimizer.step'):
+    for group in state.optimizer.param_groups:
+      group['lr'] = learning_rate
+    state.optimizer.step()
   state.train_steps += 1
   if state.train_steps % target_update_period == 0:
-    with torch.no_grad():
+    with profiling.span('optimizer.target_sync'), torch.no_grad():
       for t, p in zip(state.target_network.parameters(),
                       state.network.parameters()):
         t.copy_(p)
@@ -268,8 +272,9 @@ def train_step(config: QrDqnConfig, state: LearnerState,
                ) -> Tuple[LearnerState, Dict[str, torch.Tensor]]:
   """One Adam step and the periodic target sync (ble_tpu qrdqn.py:136-159),
   in place; returns (state, metrics) with `loss` detached."""
-  loss, metrics = quantile_loss(config, state.network, state.target_network,
-                                batch)
+  with profiling.span('qrdqn.loss'):
+    loss, metrics = quantile_loss(config, state.network,
+                                  state.target_network, batch)
   optimizer_step(state, loss, learning_rate_at(config, state.train_steps),
                  config.target_update_period, grad_transform)
   metrics['loss'] = loss.detach()

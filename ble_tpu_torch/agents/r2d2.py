@@ -34,6 +34,7 @@ import torch
 
 from ble_tpu_torch.agents import networks
 from ble_tpu_torch.agents import qrdqn
+from ble_tpu_torch.utils import profiling
 
 LearnerState = qrdqn.LearnerState
 
@@ -208,8 +209,9 @@ def train_step(config: R2d2Config, state: LearnerState,
                ) -> Tuple[LearnerState, Dict[str, torch.Tensor]]:
   """One Adam step and the periodic target sync (ble_tpu r2d2.py:225-240),
   in place; returns (state, metrics) with `loss` detached."""
-  loss, metrics = sequence_loss(config, state.network, state.target_network,
-                                batch)
+  with profiling.span('r2d2.loss'):
+    loss, metrics = sequence_loss(config, state.network, state.target_network,
+                                  batch)
   qrdqn.optimizer_step(state, loss, config.learning_rate,
                        config.target_update_period, grad_transform)
   metrics['loss'] = loss.detach()

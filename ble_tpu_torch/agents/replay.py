@@ -25,6 +25,8 @@ from typing import Dict, Optional
 
 import torch
 
+from ble_tpu_torch.utils import profiling
+
 _INT32_MAX = 2**31 - 1
 
 
@@ -89,21 +91,22 @@ def add(state: ReplayState, config: ReplayConfig, obs, action, reward,
     actor_state: (E, S) flattened recurrent-actor carries at this step
       (required iff the ring was initialized with actor_state_dim).
   """
-  slot = state.total % config.ring_len
-  # New transitions get the current max priority (Dopamine convention) so
-  # they are sampled at least once.
-  max_priority = torch.clamp_min(state.priority.max(), 1.0)
-  state.priority[:, slot] = torch.where(active, max_priority, 0.0)
-  state.obs[:, slot] = obs
-  state.action[:, slot] = action
-  state.reward[:, slot] = reward
-  state.terminal[:, slot] = terminal
-  state.valid[:, slot] = active
-  state.episode_step[:, slot] = episode_step
-  if state.actor_state is not None:
-    state.actor_state[:, slot] = actor_state
-  state.total += 1
-  return state
+  with profiling.span('replay.add'):
+    slot = state.total % config.ring_len
+    # New transitions get the current max priority (Dopamine convention) so
+    # they are sampled at least once.
+    max_priority = torch.clamp_min(state.priority.max(), 1.0)
+    state.priority[:, slot] = torch.where(active, max_priority, 0.0)
+    state.obs[:, slot] = obs
+    state.action[:, slot] = action
+    state.reward[:, slot] = reward
+    state.terminal[:, slot] = terminal
+    state.valid[:, slot] = active
+    state.episode_step[:, slot] = episode_step
+    if state.actor_state is not None:
+      state.actor_state[:, slot] = actor_state
+    state.total += 1
+    return state
 
 
 def draw(state: ReplayState, config: ReplayConfig,
@@ -229,7 +232,8 @@ def sample_from_draws(state: ReplayState, config: ReplayConfig, env_idx,
 def sample(state: ReplayState, config: ReplayConfig,
            generator: torch.Generator):
   """`sample_from_draws` on fresh draws from `generator`."""
-  return sample_from_draws(state, config, **draw(state, config, generator))
+  with profiling.span('replay.sample'):
+    return sample_from_draws(state, config, **draw(state, config, generator))
 
 
 @torch.no_grad()
@@ -317,8 +321,9 @@ def sample_sequence_from_draws(state: ReplayState, config: ReplayConfig,
 def sample_sequence(state: ReplayState, config: ReplayConfig,
                     generator: torch.Generator, seq_len: int):
   """`sample_sequence_from_draws` on fresh draws from `generator`."""
-  return sample_sequence_from_draws(state, config, seq_len,
-                                    **draw_sequence(state, config, generator))
+  with profiling.span('replay.sample'):
+    return sample_sequence_from_draws(
+        state, config, seq_len, **draw_sequence(state, config, generator))
 
 
 def can_sample(state: ReplayState, config: ReplayConfig,

@@ -37,6 +37,7 @@ from ble_tpu_torch.ops import gp_window
 from ble_tpu_torch.ops import physics
 from ble_tpu_torch.utils import constants
 from ble_tpu_torch.utils import prng
+from ble_tpu_torch.utils import profiling
 from ble_tpu_torch.utils import sampling
 from ble_tpu_torch.utils import transforms
 
@@ -135,15 +136,17 @@ def _observe_and_features(params: EnvParams, state: EnvState, col, noise_u,
   forecast = the noise) and the feature vectors."""
   b = state.balloon
   elapsed = b.time_elapsed_s.to(torch.float32)
-  gp, error_means, deviations = gp_window.step(
-      state.gp, b.x_m, b.y_m, b.pressure_pa, elapsed, noise_u, noise_v,
-      enabled)
+  with profiling.span('env.gp'):
+    gp, error_means, deviations = gp_window.step(
+        state.gp, b.x_m, b.y_m, b.pressure_pa, elapsed, noise_u, noise_v,
+        enabled)
   state = dataclasses.replace(state, gp=gp)
-  levels = features_lib.pressure_levels(b.x_m.device)
-  forecast_levels = wind_field_lib.column_at_levels(col, levels)
-  obs = features_lib.get_features_precomputed(
-      params.balloon, b, state.atmosphere, state.sunrise_s, state.sunset_s,
-      error_means, deviations, forecast_levels)
+  with profiling.span('env.features'):
+    levels = features_lib.pressure_levels(b.x_m.device)
+    forecast_levels = wind_field_lib.column_at_levels(col, levels)
+    obs = features_lib.get_features_precomputed(
+        params.balloon, b, state.atmosphere, state.sunrise_s, state.sunset_s,
+        error_means, deviations, forecast_levels)
   return state, obs
 
 
@@ -180,16 +183,18 @@ def reset_from_field(keys, params: EnvParams, field, device=None):
     (EnvState, observation (E, 1099)).
   """
   device = resolve_device(device)
-  ic = sampling.sample_initial_conditions(keys)
-  atmosphere = tree_map(lambda x: x.to(device),
-                        atmosphere_lib.make(ic['atmosphere_alpha']))
-  noise_keys = ic.pop('noise_keys')
-  ic = {k: v.to(device) for k, v in ic.items()}
-  return init_state(params, atmosphere, ic['time_s'], ic['x_m'], ic['y_m'],
-                    ic['center_lat_rad'], ic['center_lng_rad'],
-                    ic['pressure_pa'], ic['upwelling_ir'],
-                    make_wind(params, field, noise_keys, ic['x_m'],
-                              ic['y_m']))
+  with profiling.span('reset.draws'):
+    ic = sampling.sample_initial_conditions(keys)
+  with profiling.span('reset.init'):
+    atmosphere = tree_map(lambda x: x.to(device),
+                          atmosphere_lib.make(ic['atmosphere_alpha']))
+    noise_keys = ic.pop('noise_keys')
+    ic = {k: v.to(device) for k, v in ic.items()}
+    return init_state(params, atmosphere, ic['time_s'], ic['x_m'], ic['y_m'],
+                      ic['center_lat_rad'], ic['center_lng_rad'],
+                      ic['pressure_pa'], ic['upwelling_ir'],
+                      make_wind(params, field, noise_keys, ic['x_m'],
+                                ic['y_m']))
 
 
 def make_wind(params: EnvParams, field, noise_keys, x_m, y_m,
@@ -214,15 +219,21 @@ def reset_keys(params: EnvParams, keys, field_fn, device=None):
   field_fn(forecast_keys(keys), device) (see make_field_fn), then
   reset_from_field. Returns (EnvState, observation (E, 1099))."""
   device = resolve_device(device)
-  return reset_from_field(keys, params, field_fn(forecast_keys(keys), device),
-                          device)
+  with profiling.span('reset.draws'):
+    fkeys = forecast_keys(keys)
+  with profiling.span('reset.decode'):
+    field = field_fn(fkeys, device)
+  return reset_from_field(keys, params, field, device)
 
 
 def reset(params: EnvParams, seeds, field_fn, device=None):
   """Fresh episodes for integer `seeds`: reset_keys on seed_keys(seeds), so
   seed s gives the world of the JAX package's env.reset(seed_to_key(s)).
   Returns (EnvState, observation (E, 1099))."""
-  return reset_keys(params, seed_keys(seeds), field_fn, device)
+  with profiling.span('env.reset'):
+    with profiling.span('reset.draws'):
+      keys = seed_keys(seeds)
+    return reset_keys(params, keys, field_fn, device)
 
 
 # Latents a decoder call. cuBLAS picks a GEMM by its row count, and two
@@ -325,30 +336,36 @@ def step_batched(params: EnvParams, state: EnvState, actions,
   refresh: 'auto' (the cadence above), or 'never' for callers that
   re-centre (refresh_field_cache) themselves, as rollout_window's do.
   """
-  if state.wind.slab is not None and refresh != 'never':
-    if global_step is None or int(global_step) % params.field_cache_every == 0:
-      state = refresh_field_cache(state)
-  was_ok = state.balloon.status == balloon_lib.STATUS_OK
-  balloon = physics.simulate_step_fused(
-      params.balloon, state.atmosphere, state.balloon, state.wind_u,
-      state.wind_v, actions.to(torch.int32))
+  with profiling.span('env.step_batched'):
+    if state.wind.slab is not None and refresh != 'never':
+      if (global_step is None or
+          int(global_step) % params.field_cache_every == 0):
+        with profiling.span('env.slab'):
+          state = refresh_field_cache(state)
+    was_ok = state.balloon.status == balloon_lib.STATUS_OK
+    with profiling.span('env.physics'):
+      balloon = physics.simulate_step_fused(
+          params.balloon, state.atmosphere, state.balloon, state.wind_u,
+          state.wind_v, actions.to(torch.int32))
 
-  # Ground truth = forecast + noise at the same point, so the GP error
-  # (truth - forecast) is exactly the noise.
-  col, forecast, noise_u, noise_v = _wind_and_forecast(state.wind, balloon)
-  state = dataclasses.replace(
-      state, balloon=balloon,
-      wind_u=forecast[:, 0] + noise_u, wind_v=forecast[:, 1] + noise_v,
-      sunrise_s=safety.advance_past(state.sunrise_s, balloon.time_s),
-      sunset_s=safety.advance_past(state.sunset_s, balloon.time_s),
-      steps=state.steps + 1)
-  # Terminal balloons freeze; their exact-duplicate measurements stay out
-  # of the GP. The step where a balloon becomes terminal still observes.
-  state, obs = _observe_and_features(params, state, col, noise_u, noise_v,
-                                     was_ok)
-
-  return StepOutput(state, obs, *step_outcome(params, state.balloon,
-                                               state.wind))
+    # Ground truth = forecast + noise at the same point, so the GP error
+    # (truth - forecast) is exactly the noise.
+    with profiling.span('env.wind'):
+      col, forecast, noise_u, noise_v = _wind_and_forecast(state.wind,
+                                                           balloon)
+    state = dataclasses.replace(
+        state, balloon=balloon,
+        wind_u=forecast[:, 0] + noise_u, wind_v=forecast[:, 1] + noise_v,
+        sunrise_s=safety.advance_past(state.sunrise_s, balloon.time_s),
+        sunset_s=safety.advance_past(state.sunset_s, balloon.time_s),
+        steps=state.steps + 1)
+    # Terminal balloons freeze; their exact-duplicate measurements stay out
+    # of the GP. The step where a balloon becomes terminal still observes.
+    state, obs = _observe_and_features(params, state, col, noise_u, noise_v,
+                                       was_ok)
+    with profiling.span('env.outcome'):
+      outcome = step_outcome(params, state.balloon, state.wind)
+    return StepOutput(state, obs, *outcome)
 
 
 def rollout_window(params: EnvParams, state: EnvState, actions) -> StepOutput:

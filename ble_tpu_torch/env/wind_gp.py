@@ -19,6 +19,8 @@ import dataclasses
 
 import torch
 
+from ble_tpu_torch.utils import profiling
+
 CAPACITY = 128
 TIME_HORIZON_S = 6 * 3600
 LENGTH_SCALES = (357000.0, 357000.0, 326.0, 34560.0)
@@ -200,10 +202,11 @@ def exact_inverse(locations, active):
 
 def refresh(state: WindGPState) -> WindGPState:
   """Recomputes the inverse and alpha exactly."""
-  kinv = exact_inverse(state.locations, state.active)
-  targets = torch.where(state.active[..., None], state.errors,
-                        torch.zeros_like(state.errors))
-  return dataclasses.replace(state, kinv=kinv, alpha=kinv @ targets)
+  with profiling.span('wind_gp.refresh'):
+    kinv = exact_inverse(state.locations, state.active)
+    targets = torch.where(state.active[..., None], state.errors,
+                          torch.zeros_like(state.errors))
+    return dataclasses.replace(state, kinv=kinv, alpha=kinv @ targets)
 
 
 def query(state: WindGPState, query_locations):

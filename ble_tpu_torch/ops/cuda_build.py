@@ -7,7 +7,8 @@ carries a hash of the source, the shared headers (csrc/*.cuh) and the
 flags, so an edited source or header rebuilds.
 `build()` starts one nvcc per source, all at once, and waits for them;
 nvcc's output, with ptxas's register and spill report, is kept beside each
-library as `<library>.log`.
+library as `<library>.log`. Each build adds one to the tracer's
+`kernels_built` counter (utils/profiling.py).
 """
 
 import ctypes
@@ -19,6 +20,8 @@ import subprocess
 import time
 
 import torch
+
+from ble_tpu_torch.utils import profiling
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, 'csrc')
@@ -68,43 +71,46 @@ def build(names=None) -> dict:
   """Compiles the named sources (default: all) that are not built yet, one
   nvcc process each, in parallel. Returns {name: seconds} for what it
   built; raises with nvcc's output if a build fails."""
-  names = list(SOURCES) if names is None else list(names)
-  todo = [n for n in names if not os.path.isfile(library_path(n))]
-  if not todo:
-    return {}
-  os.makedirs(BUILD_DIR, exist_ok=True)
-  nvcc = _nvcc()
-  procs = {}
-  start = time.perf_counter()
-  for name in todo:
-    out = library_path(name)
-    tmp = f'{out}.{os.getpid()}.tmp'
-    cmd = [nvcc, *_COMMON_FLAGS, *SOURCES[name], '-o', tmp,
-           os.path.join(CSRC_DIR, f'{name}.cu')]
-    procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT), tmp, out)
-  seconds, failures = {}, []
-  for name, (proc, tmp, out) in procs.items():
-    output, _ = proc.communicate()
-    seconds[name] = time.perf_counter() - start
-    text = output.decode(errors='replace')
-    if proc.returncode != 0:
-      failures.append(f'{name}.cu:\n{text}')
-      continue
-    with open(f'{out}.log', 'w') as f:
-      f.write(text)
-    os.replace(tmp, out)
-  if failures:
-    raise RuntimeError('nvcc failed:\n' + '\n'.join(failures))
-  return seconds
+  with profiling.span('cuda_build.build'):
+    names = list(SOURCES) if names is None else list(names)
+    todo = [n for n in names if not os.path.isfile(library_path(n))]
+    if not todo:
+      return {}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    start = time.perf_counter()
+    for name in todo:
+      out = library_path(name)
+      tmp = f'{out}.{os.getpid()}.tmp'
+      cmd = [nvcc, *_COMMON_FLAGS, *SOURCES[name], '-o', tmp,
+             os.path.join(CSRC_DIR, f'{name}.cu')]
+      procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT), tmp, out)
+    seconds, failures = {}, []
+    for name, (proc, tmp, out) in procs.items():
+      output, _ = proc.communicate()
+      seconds[name] = time.perf_counter() - start
+      text = output.decode(errors='replace')
+      if proc.returncode != 0:
+        failures.append(f'{name}.cu:\n{text}')
+        continue
+      with open(f'{out}.log', 'w') as f:
+        f.write(text)
+      os.replace(tmp, out)
+      profiling.count('kernels_built')
+    if failures:
+      raise RuntimeError('nvcc failed:\n' + '\n'.join(failures))
+    return seconds
 
 
 def load(name: str) -> ctypes.CDLL:
   """The ctypes handle of csrc/<name>.cu's library, building it if needed."""
   lib = _loaded.get(name)
   if lib is None:
-    build([name])
-    lib = ctypes.CDLL(library_path(name))
+    with profiling.span('cuda_build.load'):
+      build([name])
+      lib = ctypes.CDLL(library_path(name))
     _loaded[name] = lib
   return lib
 

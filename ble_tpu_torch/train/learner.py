@@ -50,6 +50,7 @@ from ble_tpu_torch.agents import replay as replay_lib
 from ble_tpu_torch.env import env as env_lib
 from ble_tpu_torch.env import wind_gp
 from ble_tpu_torch.models import loader
+from ble_tpu_torch.utils import profiling
 
 TRAINABLE_AGENTS = ('quantile', 'finetune_perciatelli', 'dqn', 'mlp',
                     'r2d2')
@@ -241,25 +242,26 @@ def train_state_from_envs(config: TrainConfig, env_state: env_lib.EnvState,
   """A fresh TrainState around envs already reset: the network drawn from a
   CPU generator seeded with `seed` (the same weights on any device), the
   loop's generator on the envs' device seeded with `seed`."""
-  core = make_agent_core(config)
-  n, obs_dim = obs.shape
-  dev = obs.device
-  generator = torch.Generator(dev).manual_seed(seed)
-  learner = core.init(torch.Generator().manual_seed(seed), obs_dim, dev)
-  actor = (core.actor_init(core.params_of(learner), n, dev)
-           if core.actor_init is not None else ())
-  return TrainState(
-      env_state=env_state, obs=obs,
-      active=torch.ones((n,), dtype=torch.bool, device=dev),
-      episode_step=torch.zeros((n,), dtype=torch.int32, device=dev),
-      episode_return=torch.zeros((n,), dtype=torch.float32, device=dev),
-      mp=marco_polo.begin_episode(n, generator), learner=learner,
-      actor=actor,
-      replay=replay_lib.init(n, obs_dim, config.replay, dev,
-                             core.actor_state_dim),
-      generator=generator,
-      next_world_seed=(first_world_seed(seed) + n if next_world_seed is None
-                       else next_world_seed))
+  with profiling.span('learner.init'):
+    core = make_agent_core(config)
+    n, obs_dim = obs.shape
+    dev = obs.device
+    generator = torch.Generator(dev).manual_seed(seed)
+    learner = core.init(torch.Generator().manual_seed(seed), obs_dim, dev)
+    actor = (core.actor_init(core.params_of(learner), n, dev)
+             if core.actor_init is not None else ())
+    return TrainState(
+        env_state=env_state, obs=obs,
+        active=torch.ones((n,), dtype=torch.bool, device=dev),
+        episode_step=torch.zeros((n,), dtype=torch.int32, device=dev),
+        episode_return=torch.zeros((n,), dtype=torch.float32, device=dev),
+        mp=marco_polo.begin_episode(n, generator), learner=learner,
+        actor=actor,
+        replay=replay_lib.init(n, obs_dim, config.replay, dev,
+                               core.actor_state_dim),
+        generator=generator,
+        next_world_seed=(first_world_seed(seed) + n if next_world_seed is None
+                         else next_world_seed))
 
 
 def init_train_state(seed: int, env_params: env_lib.EnvParams,
@@ -336,21 +338,22 @@ def learn(config: TrainConfig, core: AgentCore, learner,
   steps on fresh replay samples, n-step batches or sequence windows by the
   agent's sample_kind (and their priority updates). Returns (learner, the
   mean loss as a 0-d device tensor)."""
-  n = config.grad_steps_per_env_step()
-  loss_sum = None
-  for _ in range(n):
-    if core.sample_kind == 'sequence':
-      batch = replay_lib.sample_sequence(replay, config.replay, generator,
-                                         core.seq_len)
-    else:
-      batch = replay_lib.sample(replay, config.replay, generator)
-    learner, metrics = core.train_step(learner, batch, grad_transform)
-    if config.replay.prioritized:
-      replay_lib.update_priorities(replay, config.replay, batch['env_idx'],
-                                   batch['slot'], metrics['per_sample_loss'])
-    loss_sum = (metrics['loss'] if loss_sum is None
-                else loss_sum + metrics['loss'])
-  return learner, loss_sum / n
+  with profiling.span('learner.learn', cpu=True):
+    n = config.grad_steps_per_env_step()
+    loss_sum = None
+    for _ in range(n):
+      if core.sample_kind == 'sequence':
+        batch = replay_lib.sample_sequence(replay, config.replay, generator,
+                                           core.seq_len)
+      else:
+        batch = replay_lib.sample(replay, config.replay, generator)
+      learner, metrics = core.train_step(learner, batch, grad_transform)
+      if config.replay.prioritized:
+        replay_lib.update_priorities(replay, config.replay, batch['env_idx'],
+                                     batch['slot'], metrics['per_sample_loss'])
+      loss_sum = (metrics['loss'] if loss_sum is None
+                  else loss_sum + metrics['loss'])
+    return learner, loss_sum / n
 
 
 def env_step(config: TrainConfig, env_params: env_lib.EnvParams,
@@ -362,73 +365,74 @@ def env_step(config: TrainConfig, env_params: env_lib.EnvParams,
   inline step on the transition just completed. global_step, the step's
   index in its chunk, sets step_batched's slab re-centre cadence (None
   re-centres every step)."""
-  core = make_agent_core(config)
-  network = core.params_of(ts.learner)
-  if core.actor_select is not None:
-    actor, rl_actions = core.actor_select(network, ts.actor, ts.obs,
-                                          ts.generator, core.epsilon_train)
-  else:
-    actor = ts.actor
-    rl_actions = core.select_action(network, ts.obs, ts.generator,
-                                    core.epsilon_train)
-  if config.use_marco_polo:
-    mp, actions = marco_polo.step(ts.mp, ts.obs, rl_actions, ts.generator)
-  else:
-    mp, actions = ts.mp, rl_actions
+  with profiling.span('learner.env_step'):
+    core = make_agent_core(config)
+    network = core.params_of(ts.learner)
+    if core.actor_select is not None:
+      actor, rl_actions = core.actor_select(network, ts.actor, ts.obs,
+                                            ts.generator, core.epsilon_train)
+    else:
+      actor = ts.actor
+      rl_actions = core.select_action(network, ts.obs, ts.generator,
+                                      core.epsilon_train)
+    if config.use_marco_polo:
+      mp, actions = marco_polo.step(ts.mp, ts.obs, rl_actions, ts.generator)
+    else:
+      mp, actions = ts.mp, rl_actions
 
-  out = env_lib.step_batched(env_params, ts.env_state, actions,
-                             global_step=global_step)
+    out = env_lib.step_batched(env_params, ts.env_state, actions,
+                               global_step=global_step)
 
-  terminal = ts.active & out.done
-  # Stored-state replay keeps ts.actor, the carry BEFORE consuming ts.obs:
-  # the state that seeds a learner unroll starting at this slot.
-  rep = replay_lib.add(
-      ts.replay, config.replay, ts.obs, actions, out.reward, terminal,
-      ts.active, ts.episode_step,
-      actor_state=(core.actor_to_vec(ts.actor)
-                   if core.actor_to_vec is not None else None))
+    terminal = ts.active & out.done
+    # Stored-state replay keeps ts.actor, the carry BEFORE consuming ts.obs:
+    # the state that seeds a learner unroll starting at this slot.
+    rep = replay_lib.add(
+        ts.replay, config.replay, ts.obs, actions, out.reward, terminal,
+        ts.active, ts.episode_step,
+        actor_state=(core.actor_to_vec(ts.actor)
+                     if core.actor_to_vec is not None else None))
 
-  learner = ts.learner
-  if not core.uses_replay:
-    # Online (SARSA) agents: the pending transition completes now that a_t
-    # at s_t is known; one batched TD step.
-    learner, mean_loss = core.train_inline(
-        learner, ts.obs, actions, out.reward, out.done, ts.active,
-        grad_transform)
-  elif replay_lib.can_sample(rep, config.replay, core.min_replay_history):
-    learner, mean_loss = learn(config, core, learner, rep, ts.generator,
-                               grad_transform)
-  else:
-    mean_loss = torch.zeros((), device=ts.obs.device)
+    learner = ts.learner
+    if not core.uses_replay:
+      # Online (SARSA) agents: the pending transition completes now that a_t
+      # at s_t is known; one batched TD step.
+      learner, mean_loss = core.train_inline(
+          learner, ts.obs, actions, out.reward, out.done, ts.active,
+          grad_transform)
+    elif replay_lib.can_sample(rep, config.replay, core.min_replay_history):
+      learner, mean_loss = learn(config, core, learner, rep, ts.generator,
+                                 grad_transform)
+    else:
+      mean_loss = torch.zeros((), device=ts.obs.device)
 
-  active_f = ts.active.to(torch.float32)
-  masked_reward = torch.where(ts.active, out.reward, 0.0)
-  truncated = (ts.episode_step + 1) >= config.episode_length
-  new_active = ts.active & ~(out.done | truncated)
+    active_f = ts.active.to(torch.float32)
+    masked_reward = torch.where(ts.active, out.reward, 0.0)
+    truncated = (ts.episode_step + 1) >= config.episode_length
+    new_active = ts.active & ~(out.done | truncated)
 
-  # Per-step collector statistics: action histogram over live envs,
-  # terminal counts, and env 0's flight track.
-  action_hist = torch.zeros((env_lib.NUM_ACTIONS,), dtype=torch.int32,
-                            device=actions.device).index_add_(
-                                0, actions.to(torch.int64),
-                                ts.active.to(torch.int32))
-  metrics = {
-      'reward': masked_reward.sum() / torch.clamp_min(active_f.sum(), 1.0),
-      'loss': mean_loss,
-      'active_frac': new_active.to(torch.float32).mean(),
-      'action_hist': action_hist,
-      'terminals': terminal.to(torch.int32).sum(),
-      'path': torch.stack([out.info['x_km'][0], out.info['y_km'][0],
-                           out.info['pressure_pa'][0],
-                           out.info['battery_soc'][0]]),
-  }
-  ts = dataclasses.replace(
-      ts, env_state=out.state, obs=out.observation, active=new_active,
-      episode_step=ts.episode_step + ts.active.to(torch.int32),
-      episode_return=ts.episode_return + masked_reward,
-      mp=mp, learner=learner, actor=actor, replay=rep,
-      env_steps=ts.env_steps + 1)
-  return ts, metrics
+    # Per-step collector statistics: action histogram over live envs,
+    # terminal counts, and env 0's flight track.
+    action_hist = torch.zeros((env_lib.NUM_ACTIONS,), dtype=torch.int32,
+                              device=actions.device).index_add_(
+                                  0, actions.to(torch.int64),
+                                  ts.active.to(torch.int32))
+    metrics = {
+        'reward': masked_reward.sum() / torch.clamp_min(active_f.sum(), 1.0),
+        'loss': mean_loss,
+        'active_frac': new_active.to(torch.float32).mean(),
+        'action_hist': action_hist,
+        'terminals': terminal.to(torch.int32).sum(),
+        'path': torch.stack([out.info['x_km'][0], out.info['y_km'][0],
+                             out.info['pressure_pa'][0],
+                             out.info['battery_soc'][0]]),
+    }
+    ts = dataclasses.replace(
+        ts, env_state=out.state, obs=out.observation, active=new_active,
+        episode_step=ts.episode_step + ts.active.to(torch.int32),
+        episode_return=ts.episode_return + masked_reward,
+        mp=mp, learner=learner, actor=actor, replay=rep,
+        env_steps=ts.env_steps + 1)
+    return ts, metrics
 
 
 def run_episode_chunk(config: TrainConfig, env_params: env_lib.EnvParams,
@@ -443,14 +447,15 @@ def run_episode_chunk(config: TrainConfig, env_params: env_lib.EnvParams,
   before every env_params.field_cache_every steps, the tail included:
   ble_tpu's nested scans do the same.
   """
-  ts = dataclasses.replace(ts, env_state=dataclasses.replace(
-      ts.env_state, gp=wind_gp.refresh(ts.env_state.gp)))
-  steps = []
-  for t in range(num_steps):
-    ts, metrics = env_step(config, env_params, ts, grad_transform,
-                           global_step=t)
-    steps.append(metrics)
-  return ts, {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+  with profiling.span('learner.chunk'):
+    ts = dataclasses.replace(ts, env_state=dataclasses.replace(
+        ts.env_state, gp=wind_gp.refresh(ts.env_state.gp)))
+    steps = []
+    for t in range(num_steps):
+      ts, metrics = env_step(config, env_params, ts, grad_transform,
+                             global_step=t)
+      steps.append(metrics)
+    return ts, {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
 
 
 def make_parametric_eval_policy(config: TrainConfig) -> base.Policy:
