@@ -21,15 +21,30 @@ is the same select-then-sum and the gradient stays finite. Their
 `per_sample_loss` still reads NaN, as in ble_tpu, so prioritized replay
 gives them priority 1.0; only `mean_q` then differs, averaging their
 zeroed quantiles where ble_tpu reads NaN.
+
+On the card, `train_step` replays the loss, the backward and Adam's step
+as one CUDA graph (`_TrainGraph`, one a LearnerState), over static batch
+tensors: those of the replay's sample graph (agents/replay.py), into which
+any other batch is copied. It engages when the networks are on the card,
+no `grad_transform` is given, Adam has stepped once (its moments exist),
+and the first graphed batch is a sample graph's. Everything else runs the
+eager path: the CPU, the data-parallel learner, prioritized replay (its
+batches are eager), and dqn and r2d2, which call `optimizer_step`. The
+graphed Adam is torch's, capturable, with its rate and step counts float64
+device tensors; the target sync and `train_steps` stay on the host.
 """
 
+import copy
 import dataclasses
 import math
+import warnings
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils import weak
 
 from ble_tpu_torch.agents import networks
+from ble_tpu_torch.agents import replay
 from ble_tpu_torch.utils import profiling
 
 
@@ -266,12 +281,182 @@ def optimizer_step(state: LearnerState, loss: torch.Tensor,
         t.copy_(p)
 
 
+# The batch entries quantile_loss reads: the train graph's static inputs.
+_BATCH_KEYS = ('obs', 'action', 'n_step_reward', 'bootstrap_discount',
+               'next_obs', 'weight')
+
+
+def _graph_body(config: QrDqnConfig, network, target_network, optimizer,
+                batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+  loss, metrics = quantile_loss(config, network, target_network, batch)
+  loss.backward()
+  optimizer.step()
+  metrics['loss'] = loss.detach()
+  return metrics
+
+
+def _make_capturable(optimizer: torch.optim.Adam, lr: torch.Tensor) -> None:
+  """Adam as a graph captures it: capturable, the rate read from `lr`, and
+  each `step` count on the device, where the graph increments it. The
+  counts and the rate are float64, so capturable Adam computes its bias
+  corrections and step size in float64, as the eager path does on the
+  host; in float32 (torch's default there) 1 - 0.999^t is off by ~1e-5
+  relative at early steps."""
+  for group in optimizer.param_groups:
+    group['capturable'] = True
+    group['lr'] = lr
+    for p in group['params']:
+      st = optimizer.state[p]
+      st['step'] = st['step'].to(device=lr.device, dtype=torch.float64)
+
+
+class _TrainGraph:
+  """QR-DQN's loss, backward and Adam step of one LearnerState, captured
+  as one CUDA graph.
+
+  Its static inputs are a sample graph's output tensors (another batch is
+  copied into them) and the rate, a float64 0-d device tensor filled when
+  learning_rate_at changes. The gradients it writes are the parameters'
+  `p.grad`, and its outputs (the loss and metrics) are overwritten by the
+  next replay. After the capture the optimizer's groups read as eager
+  again (not capturable, a float rate); each `step` count stays on the
+  device.
+  """
+
+  def __init__(self, config: QrDqnConfig, state: LearnerState,
+               batch: Dict[str, torch.Tensor]):
+    self.config = config
+    self.network = state.network
+    self.target_network = state.target_network
+    self.optimizer = state.optimizer
+    self.optimizer_state = state.optimizer.state
+    self.inputs = {k: batch[k] for k in _BATCH_KEYS}
+    self.rate = learning_rate_at(config, state.train_steps)
+    self.lr = torch.full((), self.rate, dtype=torch.float64,
+                         device=batch['obs'].device)
+    self.graph = None
+    self.outputs = None
+
+  def fits(self, config: QrDqnConfig, state: LearnerState,
+           batch: Dict[str, torch.Tensor]) -> bool:
+    """Whether a replay computes this step: the same config, networks and
+    Adam state, and a batch of the inputs' shapes and types."""
+    if not (config is self.config or config == self.config):
+      return False
+    if (state.network is not self.network or
+        state.target_network is not self.target_network or
+        state.optimizer is not self.optimizer or
+        state.optimizer.state is not self.optimizer_state):
+      return False
+    for k, v in self.inputs.items():
+      got = batch.get(k)
+      if got is not v and (got is None or got.shape != v.shape or
+                           got.dtype != v.dtype or got.device != v.device):
+        return False
+    return True
+
+  def step(self, state: LearnerState,
+           batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    for k, v in self.inputs.items():
+      if batch[k] is not v:
+        v.copy_(batch[k])
+    rate = learning_rate_at(self.config, state.train_steps)
+    if rate != self.rate:
+      self.lr.fill_(rate)
+      self.rate = rate
+      for group in self.optimizer.param_groups:
+        group['lr'] = rate
+    if self.graph is None:
+      self._capture()
+    self.graph.replay()
+    profiling.count('qrdqn.graph_replays')
+    return dict(self.outputs)
+
+  def _capture(self) -> None:
+    """A warm-up step on copies of the networks and Adam, on the capture
+    stream, then the capture, which runs nothing: the learner's
+    parameters, moments and counts move only in the replays."""
+    stream = torch.cuda.Stream(device=self.lr.device)
+    scratch = copy.deepcopy((self.network, self.target_network,
+                             self.optimizer))
+    _make_capturable(scratch[2], self.lr)
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), warnings.catch_warnings():
+      # Adam warns once when a capturable step runs uncaptured.
+      warnings.simplefilter('ignore', UserWarning)
+      _graph_body(self.config, *scratch, self.inputs)
+    torch.cuda.current_stream().wait_stream(stream)
+    del scratch
+    _make_capturable(self.optimizer, self.lr)
+    for p in self.network.parameters():
+      p.grad = None
+    self.graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(self.graph, stream=stream):
+      self.outputs = _graph_body(self.config, self.network,
+                                 self.target_network, self.optimizer,
+                                 self.inputs)
+    for group in self.optimizer.param_groups:
+      group['capturable'] = False
+      group['lr'] = self.rate
+    profiling.count('qrdqn.graph_captures')
+
+
+# The train graph of each learner, keyed weakly by the LearnerState object:
+# a graph lives as long as its learner, and what copies or saves a state's
+# fields (deepcopy, checkpoints) never meets it.
+_TRAIN_GRAPHS = weak.WeakIdKeyDictionary()
+
+
+def _train_graph(config: QrDqnConfig, state: LearnerState,
+                 batch: Dict[str, torch.Tensor],
+                 grad_transform: Optional[Callable]) -> Optional[_TrainGraph]:
+  """The learner's train graph, made at the first step it can serve; None,
+  with the reason counted, where the step runs eager."""
+  reason = None
+  if grad_transform is not None:
+    reason = 'grad_transform'
+  elif not next(state.network.parameters()).is_cuda:
+    reason = 'device'
+  graph = _TRAIN_GRAPHS.get(state)
+  if graph is not None and (reason or not graph.fits(config, state, batch)):
+    # Dropped: an eager step sets new `p.grad`s, which a replay would not
+    # write. Adam's step counts stay float64 on the device, where the
+    # eager step reads them as it reads its own.
+    del _TRAIN_GRAPHS[state]
+    graph = None
+  if graph is None and reason is None:
+    if not isinstance(batch, replay.GraphBatch):
+      reason = 'batch'
+    elif not all(p in state.optimizer.state
+                 for p in state.network.parameters() if p.requires_grad):
+      reason = 'warmup'
+    else:
+      graph = _TRAIN_GRAPHS[state] = _TrainGraph(config, state, batch)
+  if graph is None:
+    profiling.count('qrdqn.graph_eager')
+    profiling.count(f'qrdqn.graph_eager.{reason}')
+  return graph
+
+
 def train_step(config: QrDqnConfig, state: LearnerState,
                batch: Dict[str, torch.Tensor],
                grad_transform: Optional[Callable] = None
                ) -> Tuple[LearnerState, Dict[str, torch.Tensor]]:
   """One Adam step and the periodic target sync (ble_tpu qrdqn.py:136-159),
-  in place; returns (state, metrics) with `loss` detached."""
+  in place; returns (state, metrics) with `loss` detached. On the train
+  graph (module docstring) the metrics are its static outputs, which the
+  learner's next train step overwrites."""
+  graph = _train_graph(config, state, batch, grad_transform)
+  if graph is not None:
+    with profiling.span('qrdqn.graph_step'):
+      metrics = graph.step(state, batch)
+    state.train_steps += 1
+    if state.train_steps % config.target_update_period == 0:
+      with profiling.span('optimizer.target_sync'), torch.no_grad():
+        for t, p in zip(state.target_network.parameters(),
+                        state.network.parameters()):
+          t.copy_(p)
+    return state, metrics
   with profiling.span('qrdqn.loss'):
     loss, metrics = quantile_loss(config, state.network,
                                   state.target_network, batch)

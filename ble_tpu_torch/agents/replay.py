@@ -16,6 +16,14 @@ discount, coherence mask, finite quarantine, importance weights). The
 recurrent learner's windows split the same way: `draw_sequence` and
 `sample_sequence_from_draws`.
 
+On the card, `sample` of a uniform ring replays `sample_from_draws` as one
+CUDA graph (`_SampleGraph`), captured at the ring's first sample: `draw`
+writes into the graph's static inputs, and the batch it returns is held
+in the graph's static outputs (a `GraphBatch`), which the next sample of
+the same ring overwrites. The graph runs the same kernels on the same
+inputs, so the batch is the eager one, bit for bit. Prioritized rings,
+sequence samples and the CPU stay eager.
+
 Capacity = num_envs * ring_len (the reference uses 2M transitions, e.g.
 4096 envs x 512 slots).
 """
@@ -24,6 +32,7 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+from torch.utils import weak
 
 from ble_tpu_torch.utils import profiling
 
@@ -110,21 +119,37 @@ def add(state: ReplayState, config: ReplayConfig, obs, action, reward,
 
 
 def draw(state: ReplayState, config: ReplayConfig,
-         generator: torch.Generator) -> Dict[str, torch.Tensor]:
+         generator: torch.Generator,
+         out: Optional[Dict[str, torch.Tensor]] = None
+         ) -> Dict[str, torch.Tensor]:
   """The random numbers of one sample, on the generator's device: env
   indices, and base-step integers in [0, 2^31 - 1) (uniform) or uniform
-  variates in [1e-10, 1) over every slot (prioritized)."""
+  variates in [1e-10, 1) over every slot (prioritized). A uniform draw
+  may write into `out`'s int64 tensors (the sample graph's inputs); the
+  generator advances as it does without."""
   dev = generator.device
   b = config.batch_size
-  out = {'env_idx': torch.randint(0, state.obs.shape[0], (b,),
-                                  generator=generator, device=dev)}
+  out = out or {}
+  draws = {'env_idx': torch.randint(0, state.obs.shape[0], (b,),
+                                    generator=generator, device=dev,
+                                    out=out.get('env_idx'))}
   if config.prioritized:
     u = torch.rand((b, config.ring_len), generator=generator, device=dev)
-    out['uniform'] = torch.clamp_min(1e-10 + (1.0 - 1e-10) * u, 1e-10)
+    draws['uniform'] = torch.clamp_min(1e-10 + (1.0 - 1e-10) * u, 1e-10)
   else:
-    out['time_draw'] = torch.randint(0, _INT32_MAX, (b,), generator=generator,
-                                     device=dev)
-  return out
+    draws['time_draw'] = torch.randint(0, _INT32_MAX, (b,),
+                                       generator=generator, device=dev,
+                                       out=out.get('time_draw'))
+  return draws
+
+
+def _base_step_bounds(total: int, config: ReplayConfig, window: int):
+  """The oldest base step a sample may take and the number of them, from
+  the host cursor: base steps g in [max(0, total - ring_len), total -
+  window - 1], where a sample reads slots g..g+window."""
+  oldest = max(0, total - config.ring_len)
+  hi = max(oldest + 1, total - window)
+  return oldest, max(hi - oldest, 1)
 
 
 @torch.no_grad()
@@ -140,16 +165,20 @@ def sample_from_draws(state: ReplayState, config: ReplayConfig, env_idx,
   (0 for incoherent or non-finite samples; times the importance weight when
   prioritized), env_idx and slot.
   """
+  oldest, span = _base_step_bounds(state.total, config, config.n_step)
+  return _n_step_sample(state, config, env_idx, time_draw, uniform, oldest,
+                        span)
+
+
+def _n_step_sample(state: ReplayState, config: ReplayConfig, env_idx,
+                   time_draw, uniform, oldest, span):
+  """`sample_from_draws` with the base-step bounds given: host ints, or,
+  in the sample graph, 0-d int64 tensors on the ring's device."""
   n = config.n_step
   t_ring = config.ring_len
   dev = state.obs.device
   env_idx = env_idx.to(device=dev, dtype=torch.int64)
   total = state.total
-
-  # Valid base steps: the window uses g..g+n, so
-  # g in [max(0, total - t_ring), total - n - 1].
-  oldest = max(0, total - t_ring)
-  hi = max(oldest + 1, total - n)
 
   if config.prioritized:
     # Per drawn env, Gumbel-max over log-priorities of eligible slots.
@@ -169,7 +198,7 @@ def sample_from_draws(state: ReplayState, config: ReplayConfig, env_idx,
                    torch.clamp_min(prio_sum, 1e-20))
   else:
     g = oldest + torch.remainder(time_draw.to(device=dev, dtype=torch.int64),
-                                 max(hi - oldest, 1))
+                                 span)
 
   slots = torch.remainder(
       g[:, None] + torch.arange(n + 1, device=dev)[None, :], t_ring)
@@ -229,11 +258,106 @@ def sample_from_draws(state: ReplayState, config: ReplayConfig, env_idx,
   }
 
 
+class GraphBatch(dict):
+  """A batch held in a sample graph's static output tensors: the next
+  `sample` of the same ring overwrites them."""
+
+
+def _ring(state: ReplayState):
+  return (state.obs, state.action, state.reward, state.terminal, state.valid,
+          state.episode_step)
+
+
+class _SampleGraph:
+  """`sample_from_draws` of a uniform ring, captured as one CUDA graph.
+
+  Its inputs are static: the draws, and the base-step bounds as 0-d
+  device tensors, filled when the host cursor `total` has moved since the
+  last replay (once an env step in the learner). A replay writes the
+  batch into the static outputs.
+  """
+
+  def __init__(self, state: ReplayState, config: ReplayConfig):
+    dev = state.obs.device
+    b = config.batch_size
+    self.config = config
+    self.ring = _ring(state)
+    self.draws = {k: torch.zeros((b,), dtype=torch.int64, device=dev)
+                  for k in ('env_idx', 'time_draw')}
+    self.oldest = torch.zeros((), dtype=torch.int64, device=dev)
+    self.span = torch.ones((), dtype=torch.int64, device=dev)
+    self.total = None
+    self.graph = None
+    self.outputs = None
+
+  def fits(self, state: ReplayState, config: ReplayConfig) -> bool:
+    return (config is self.config or config == self.config) and all(
+        a is b for a, b in zip(_ring(state), self.ring))
+
+  def replay(self, state: ReplayState) -> GraphBatch:
+    if state.total != self.total:
+      oldest, span = _base_step_bounds(state.total, self.config,
+                                       self.config.n_step)
+      self.oldest.fill_(oldest)
+      self.span.fill_(span)
+      self.total = state.total
+    if self.graph is None:
+      self._capture(state)
+    self.graph.replay()
+    profiling.count('replay.graph_replays')
+    return GraphBatch(self.outputs)
+
+  @torch.no_grad()
+  def _capture(self, state: ReplayState) -> None:
+    """One eager run on the capture stream first (the sample is pure, so
+    it changes nothing), then the capture, which runs nothing."""
+    body = lambda: _n_step_sample(state, self.config, self.draws['env_idx'],
+                                  self.draws['time_draw'], None, self.oldest,
+                                  self.span)
+    stream = torch.cuda.Stream(device=state.obs.device)
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+      body()
+    torch.cuda.current_stream().wait_stream(stream)
+    self.graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(self.graph, stream=stream):
+      self.outputs = body()
+    profiling.count('replay.graph_captures')
+
+
+# The sample graph of each ring, keyed weakly by the ReplayState object: a
+# graph lives as long as its ring, and what copies or saves a state's
+# fields (deepcopy, checkpoints) never meets it.
+_SAMPLE_GRAPHS = weak.WeakIdKeyDictionary()
+
+
+def _sample_graph(state: ReplayState, config: ReplayConfig,
+                  generator: torch.Generator) -> Optional[_SampleGraph]:
+  """The ring's sample graph, made on its first use, where one can serve:
+  a uniform ring on the card with the generator on the ring's device."""
+  dev = generator.device
+  if dev.type == 'cuda' and dev.index is None:  # torch.Generator('cuda').
+    dev = torch.device('cuda', torch.cuda.current_device())
+  if config.prioritized or not state.obs.is_cuda or dev != state.obs.device:
+    return None
+  graph = _SAMPLE_GRAPHS.get(state)
+  if graph is None or not graph.fits(state, config):
+    graph = _SAMPLE_GRAPHS[state] = _SampleGraph(state, config)
+  return graph
+
+
 def sample(state: ReplayState, config: ReplayConfig,
            generator: torch.Generator):
-  """`sample_from_draws` on fresh draws from `generator`."""
+  """`sample_from_draws` on fresh draws from `generator`; on the card, of a
+  uniform ring, as a replay of the ring's sample graph, whose batch (a
+  `GraphBatch`) the ring's next sample overwrites."""
   with profiling.span('replay.sample'):
-    return sample_from_draws(state, config, **draw(state, config, generator))
+    graph = _sample_graph(state, config, generator)
+    if graph is None:
+      return sample_from_draws(state, config,
+                               **draw(state, config, generator))
+    draw(state, config, generator, out=graph.draws)
+    return graph.replay(state)
 
 
 @torch.no_grad()
@@ -277,11 +401,9 @@ def sample_sequence_from_draws(state: ReplayState, config: ReplayConfig,
   t_ring = config.ring_len
   dev = state.obs.device
   env_idx = env_idx.to(device=dev, dtype=torch.int64)
-  total = state.total
-  oldest = max(0, total - t_ring)
-  hi = max(oldest + 1, total - seq_len)
+  oldest, span = _base_step_bounds(state.total, config, seq_len)
   g = oldest + torch.remainder(time_draw.to(device=dev, dtype=torch.int64),
-                               max(hi - oldest, 1))
+                               span)
   steps = torch.arange(seq_len + 1, device=dev)
   slots = torch.remainder(g[:, None] + steps[None, :], t_ring)
   rows = env_idx[:, None]

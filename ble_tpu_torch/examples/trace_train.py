@@ -22,14 +22,17 @@ the tracer off and on (the order swapped every pair), each timed alone
 between device synchronisations. Prints one JSON object:
   setup, window    take()'s by_name ({span: calls, wall_s, self_s, cpu_s})
                    and counters (kernels_built, the kernel wrappers'
-                   launches);
+                   launches, the sample and train graphs' captures,
+                   replays and eager steps);
   setup_s          env.reset, reset.draws, learner.init and the set-up
                    chunks (learner.chunk), and the process's time to the
                    window;
   train_step_ms    replay.sample, qrdqn.loss, optimizer.backward, Adam
-                   (optimizer.step + optimizer.target_sync) and
+                   (optimizer.step + optimizer.target_sync), the train
+                   graph's replay (qrdqn.graph_step, where it ran) and
                    learner.learn's self time, a train step; `covered`,
-                   the share of learner.learn the first four take;
+                   the share of learner.learn the parts before the self
+                   time take;
   learner_wait_ms  learner.learn's wall less its thread CPU time, an env
                    step: the learner's thread off the CPU;
   profile          (--profile) busy_s, idle_s, idle_gaps and launches by
@@ -125,6 +128,8 @@ def train_step_split(by_name: dict, env_steps: int) -> dict:
            'qrdqn.loss': wall('qrdqn.loss'),
            'optimizer.backward': wall('optimizer.backward'),
            'adam': wall('optimizer.step') + wall('optimizer.target_sync')}
+  if 'qrdqn.graph_step' in by_name:
+    parts['qrdqn.graph_step'] = wall('qrdqn.graph_step')
   split = {k: 1e3 * v / steps for k, v in parts.items()}
   split['learner.learn self'] = 1e3 * learn['self_s'] / steps
   split['covered'] = sum(parts.values()) / learn['wall_s']

@@ -12,7 +12,9 @@ re-initialized at chunk boundaries (selective_reset) from fresh world
 seeds taken from a host counter, like the reference's per-process episodes
 (balloon_arena.py:161).
 
-The step is a Python loop over eager PyTorch. The counters a step tests
+The step is a Python loop over eager PyTorch; on the card a QR-DQN train
+step replays two CUDA graphs, the replay sample's (agents/replay.py) and
+the loss, backward and Adam's (agents/qrdqn.py). The counters a step tests
 (replay.total, train_steps, env_steps, the world-seed counter) are host
 ints, so no step waits on the device; the per-step metrics stay on the
 device until the caller reads a chunk's worth. The replay ring and the
@@ -351,7 +353,9 @@ def learn(config: TrainConfig, core: AgentCore, learner,
       if config.replay.prioritized:
         replay_lib.update_priorities(replay, config.replay, batch['env_idx'],
                                      batch['slot'], metrics['per_sample_loss'])
-      loss_sum = (metrics['loss'] if loss_sum is None
+      # A copy first: a graphed train step's loss is overwritten by the
+      # next one.
+      loss_sum = (metrics['loss'].clone() if loss_sum is None
                   else loss_sum + metrics['loss'])
     return learner, loss_sum / n
 

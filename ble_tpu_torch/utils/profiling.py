@@ -7,7 +7,7 @@ The spans sit inside the port's functions:
 
   learner.chunk, learner.env_step, learner.learn*, learner.init
                       train/learner.py
-  qrdqn.select_action, qrdqn.loss, dqn.loss, r2d2.loss
+  qrdqn.select_action, qrdqn.loss, qrdqn.graph_step, dqn.loss, r2d2.loss
                       agents/qrdqn.py, dqn.py, r2d2.py
   optimizer.backward, optimizer.step, optimizer.target_sync
                       agents/qrdqn.py:optimizer_step (every agent's)
@@ -21,9 +21,13 @@ The spans sit inside the port's functions:
   wind_gp.refresh     env/wind_gp.py
   cuda_build.build, cuda_build.load
                       ops/cuda_build.py
-and the counter `kernels_built` counts nvcc builds. `take()` also reports
-the kernel wrappers' launch counters (`launch.launches` of ops/physics.py,
-gp_window.py, gp_observe.py, gp_query.py) by reading them.
+and the counter `kernels_built` counts nvcc builds; `replay.graph_captures`,
+`replay.graph_replays`, `qrdqn.graph_captures`, `qrdqn.graph_replays` and
+`qrdqn.graph_eager` (with `qrdqn.graph_eager.<reason>`) count the CUDA
+graphs of the train step (agents/replay.py, agents/qrdqn.py). `take()`
+also reports the kernel wrappers' launch counters (`launch.launches` of
+ops/physics.py, gp_window.py, gp_observe.py, gp_query.py) by reading
+them.
 
 Off (the default), `span` tests one module flag and returns one shared
 object that does nothing: no allocation, no clock, no profiler call. On,

@@ -186,7 +186,9 @@ def test_on_tracer_records_the_span_tree(runs, part):
   assert by_name['optimizer.target_sync']['calls'] == (
       train_steps // config.qrdqn.target_update_period)
   assert by_name['env.slab']['calls'] == 2  # Steps 0 and 8, cadence 8.
-  assert taken['counters'] == {}  # No kernel launches on the CPU.
+  # No kernel launches and no graphs on the CPU: every train step eager.
+  assert taken['counters'] == {'qrdqn.graph_eager': train_steps,
+                               'qrdqn.graph_eager.device': train_steps}
 
 
 def test_tracing_leaves_the_chunk_bit_identical(runs):
