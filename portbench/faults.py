@@ -6,11 +6,21 @@ length of a run (calibrate.py --fault, and the CPU tests).
   reward_altered   the env step's rewards are off by 1e-3
   action_altered   the policy's actions are turned by one (mod 3)
   half_batch       QR-DQN's loss is the mean over half of the batch
-  update_skipped   the train step leaves the network unchanged
-  sync_skipped     the train step never sets the target network
+  update_skipped   QR-DQN's train step returns the batch's loss and
+                   leaves both networks and Adam as they were, with
+                   train_steps still counted
+  sync_skipped     QR-DQN's train step never sets the target network
+
+The train step's faults wrap qrdqn.train_step, which runs its CUDA graph
+on the card and the eager path elsewhere, so they plant on both: the
+step runs, then the fault undoes its update, or it runs with a target
+period of 2**62.
 """
 
+import dataclasses
 import importlib
+
+import torch
 
 from portbench import check
 
@@ -61,17 +71,35 @@ def _half_batch(original):
 
 
 def _update_skipped(original):
-  def optimizer_step(state, loss, learning_rate, target_update_period,
-                     grad_transform=None):
-    state.train_steps += 1
-  return optimizer_step
+  def train_step(config, state, batch, grad_transform=None):
+    params = [*state.network.parameters(),
+              *state.target_network.parameters()]
+    kept = [p.detach().clone() for p in params]
+    adam = {p: {k: v.clone() for k, v in state.optimizer.state.get(p, {})
+                .items() if torch.is_tensor(v)}
+            for p in state.network.parameters()}
+    state, metrics = original(config, state, batch, grad_transform)
+    with torch.no_grad():
+      for p, k in zip(params, kept):
+        p.copy_(k)
+      # A moment or count the step created reads as a fresh Adam's: zero.
+      for p, before in adam.items():
+        for key, v in state.optimizer.state.get(p, {}).items():
+          if not torch.is_tensor(v):
+            continue
+          if key in before:
+            v.copy_(before[key])
+          else:
+            v.zero_()
+    return state, metrics
+  return train_step
 
 
 def _sync_skipped(original):
-  def optimizer_step(state, loss, learning_rate, target_update_period,
-                     grad_transform=None):
-    original(state, loss, learning_rate, 2**62, grad_transform)
-  return optimizer_step
+  def train_step(config, state, batch, grad_transform=None):
+    return original(dataclasses.replace(config, target_update_period=2**62),
+                    state, batch, grad_transform)
+  return train_step
 
 
 FAULTS = {
@@ -85,8 +113,8 @@ FAULTS = {
                               _turned),
     'half_batch': Fault('ble_tpu_torch.agents.qrdqn', 'quantile_loss',
                         _half_batch),
-    'update_skipped': Fault('ble_tpu_torch.agents.qrdqn', 'optimizer_step',
+    'update_skipped': Fault('ble_tpu_torch.agents.qrdqn', 'train_step',
                             _update_skipped),
-    'sync_skipped': Fault('ble_tpu_torch.agents.qrdqn', 'optimizer_step',
+    'sync_skipped': Fault('ble_tpu_torch.agents.qrdqn', 'train_step',
                           _sync_skipped),
 }

@@ -6,9 +6,12 @@ A cell names a configuration (configs/<name>.json) and a traffic mix
 repeats the batched evaluator (train/eval_lib.build_eval_fn) over the
 suite's seeds from states reset once in set-up; `train` repeats the
 actor-learner's chunk (train/learner.run_episode_chunk) from a train
-state whose replay can sample. Weights are made on the device from the
-seed. The check's limits are limits/<cell>.json; the per-layer metrics
-are metrics/<name>.py, each with read(ctx) -> value or None.
+state whose replay can sample. What is the policy's (its train config,
+weights, eval policy, captured entry points, numbers and work) comes from
+policies/<policy>.py, by the configuration's `policy` key, so the
+runners know no policy. Weights are made on the device from the seed.
+The check's limits are limits/<cell>.json; the per-layer metrics are
+metrics/<name>.py, each with read(ctx) -> value or None.
 """
 
 import argparse
@@ -23,7 +26,7 @@ import time
 
 import torch
 
-from portbench import workcount
+from portbench import policies
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -101,22 +104,6 @@ def decoder_weights(seed: int, device):
   return out
 
 
-def qrdqn_weights(seed: int, widths, device):
-  """The quantile network's dense layers from the seed, on the device, in
-  one draw: kernels uniform in +-sqrt(sqrt(3) / fan_in) (the upstream
-  variance_scaling(1/sqrt(3), fan_in, uniform)), biases zero."""
-  gen = torch.Generator(device=device).manual_seed(seed ^ 0x5eed)
-  sizes = [a * b for a, b in zip(widths[:-1], widths[1:])]
-  flat = torch.rand(sum(sizes), generator=gen, device=device)
-  out, at = [], 0
-  for (a, b), n in zip(zip(widths[:-1], widths[1:]), sizes):
-    limit = math.sqrt(math.sqrt(3.0) / a)
-    out.append(((2.0 * flat[at:at + n] - 1.0).view(b, a) * limit,
-                torch.zeros(b, device=device)))
-    at += n
-  return out
-
-
 def state_dict_of(weights):
   sd = {}
   for i, (w, b) in enumerate(weights):
@@ -125,7 +112,7 @@ def state_dict_of(weights):
   return sd
 
 
-def _module_on(cls, weights, device, **kwargs):
+def module_on(cls, weights, device, **kwargs):
   """An nn.Module of class `cls` holding `weights`, built without drawing
   torch's own init."""
   with torch.device('meta'):
@@ -154,33 +141,6 @@ def _reset(env_params, seeds, field_fn, device, chunk):
   return state, torch.cat([p[1] for p in parts])
 
 
-def _qrdqn_config(cfg, num_envs: int):
-  from ble_tpu_torch.agents import qrdqn as qrdqn_lib
-  from ble_tpu_torch.agents import replay as replay_lib
-  from ble_tpu_torch.train import learner as learner_lib
-  q = cfg['qrdqn']
-  return learner_lib.TrainConfig(
-      agent='quantile', num_envs=num_envs,
-      samples_per_insert=q['samples_per_insert'],
-      use_marco_polo=q['marco_polo'], epsilon_train=q['epsilon_train'],
-      qrdqn=qrdqn_lib.QrDqnConfig(
-          num_actions=q['num_actions'], num_atoms=q['num_atoms'],
-          num_layers=q['num_layers'], hidden_units=q['hidden_units'],
-          gamma=q['gamma'], learning_rate=q['learning_rate'],
-          adam_eps=q['adam_eps'],
-          target_update_period=q['target_update_period'],
-          min_replay_history=q['min_replay_history']),
-      replay=replay_lib.ReplayConfig(ring_len=cfg['ring_len'],
-                                     n_step=q['n_step'], gamma=q['gamma'],
-                                     batch_size=q['batch_size']))
-
-
-def _widths(cfg, obs_dim):
-  q = cfg['qrdqn']
-  return workcount.qrdqn_widths(obs_dim, q['num_layers'], q['hidden_units'],
-                                q['num_actions'], q['num_atoms'])
-
-
 class Run:
   """The state of one run, shared by the runners and the metrics."""
 
@@ -189,8 +149,7 @@ class Run:
     self.trace, self.device, self.t0 = trace, torch.device(device), t0
     self.cfg, self.traffic = spec.config, spec.traffic
     self.spans = None
-    self.ctx = {'kind': self.traffic['kind'], 'policy': self.cfg['policy'],
-                'device': self.device.type}
+    self.ctx = {'kind': self.traffic['kind'], 'device': self.device.type}
     self.numbers = {}
     self.control = None
 
@@ -206,19 +165,18 @@ def _call_seconds(t_start, ends):
 
 def run_eval(run: Run, faults=(), control=False):
   """The eval cell: big-batch closed-loop evaluation from reset states."""
-  from ble_tpu_torch.agents import qrdqn as qrdqn_lib
   from ble_tpu_torch.env import env as env_lib
   from ble_tpu_torch.env import wind_gp
   from ble_tpu_torch.generative import vae
   from ble_tpu_torch.ops import gp_window
   from ble_tpu_torch.ops import physics
   from ble_tpu_torch.train import eval_lib
-  from ble_tpu_torch.train import learner as learner_lib
   from ble_tpu_torch.train import suites
   from portbench import check
   from portbench import trace as trace_lib
 
   cfg, tr, dev = run.cfg, run.traffic, run.device
+  policy = policies.load(cfg['policy'])
   steps = tr['steps_per_call']
   seeds = suites.get_eval_suite(tr['suite']).seeds[:tr['num_seeds']]
   n = len(seeds)
@@ -234,32 +192,17 @@ def run_eval(run: Run, faults=(), control=False):
   capture.install_env(env_lib)
 
   dec_w = decoder_weights(run.seed, dev)
-  decoder = _module_on(vae.Decoder, dec_w, dev)
+  decoder = module_on(vae.Decoder, dec_w, dev)
   field_fn = env_lib.make_field_fn('generative', decoder)
   env_params = _env_params(cfg)
   state0, obs0 = _reset(env_params, seeds, field_fn, dev, tr['reset_chunk'])
   _sync(dev)
   capture.reset_obs = obs0[capture.idx].clone()
 
-  weights = None
-  if cfg['policy'] == 'station_seeker':
-    from ble_tpu_torch.agents import station_seeker
-    policy_init = lambda keys, device: ()
-    policy_step = lambda state, obs, draws: (
-        state, station_seeker.pick_action(obs))
-  else:
-    config = _qrdqn_config(cfg, n)
-    run.ctx['widths'] = _widths(cfg, obs0.shape[1])
-    weights = qrdqn_weights(run.seed, run.ctx['widths'], dev)
-    q = cfg['qrdqn']
-    network = _module_on(
-        qrdqn_lib.networks.QuantileNetwork, weights, dev,
-        obs_dim=obs0.shape[1], num_actions=q['num_actions'],
-        num_layers=q['num_layers'], hidden_units=q['hidden_units'],
-        num_atoms=q['num_atoms'])
-    policy = learner_lib.make_eval_policy(config, network)
-    policy_init, policy_step = policy.init, policy.step
-    capture.install_q_values(qrdqn_lib)
+  weights = policy.weights(run.seed, cfg, obs0.shape[1], dev)
+  run.ctx['work'] = policy.work(cfg, obs0.shape[1], 0)
+  policy_init, policy_step = policy.eval_policy(cfg, n, weights, dev)
+  policy.install(capture, cfg, None, None)
   policy_step = capture.wrap_policy_step(policy_step, steps + 1)
   if run.spans is not None:
     policy_step = run.spans.wrap(policy_step, 'policy')
@@ -319,28 +262,19 @@ def run_eval(run: Run, faults=(), control=False):
   reset_seeds = [seeds[i] for i in idx.tolist()]
   numbers, reference = check.env_numbers(cfg['env'], capture, reset_seeds,
                                          dec_w, dev)
-  if cfg['policy'] == 'station_seeker':
-    numbers.update(check.seeker_numbers(capture))
-  else:
-    numbers.update(check.q_numbers(capture, weights,
-                                   cfg['qrdqn']['num_actions']))
+  numbers.update(policy.numbers(capture, weights, cfg))
   run.numbers = numbers
   if control:
     run.control = check.env_control(cfg['env'], capture, reset_seeds, dec_w,
                                     dev, reference)
-    if weights is not None:
-      run.control.update(check.q_numbers(capture, weights,
-                                         cfg['qrdqn']['num_actions'],
-                                         control=True))
+    run.control.update(policy.numbers(capture, weights, cfg, control=True))
   rate = n * calls * steps / window_s
   return {'eval_env_steps_per_s': rate, 'setup_s': setup_s}, calls, failed, \
       memory
 
 
 def run_train(run: Run, faults=(), control=False):
-  """The training cell: QR-DQN's actor-learner chunks over E envs."""
-  from ble_tpu_torch.agents import qrdqn as qrdqn_lib
-  from ble_tpu_torch.agents import replay as replay_lib
+  """The training cell: the policy's actor-learner chunks over E envs."""
   from ble_tpu_torch.env import env as env_lib
   from ble_tpu_torch.env import wind_gp
   from ble_tpu_torch.generative import vae
@@ -349,9 +283,10 @@ def run_train(run: Run, faults=(), control=False):
   from portbench import trace as trace_lib
 
   cfg, tr, dev = run.cfg, run.traffic, run.device
+  policy = policies.load(cfg['policy'])
   chunk = cfg['train_chunk_steps']
   n = tr['num_envs']
-  config = _qrdqn_config(cfg, n)
+  config = policy.train_config(cfg, n)
   idx = check.sample_rows(run.seed, n, tr['check_rows'])
   capture = check.Capture(idx, tr['check_steps'], dev)
   for fault in faults:
@@ -361,15 +296,13 @@ def run_train(run: Run, faults=(), control=False):
     run.spans.install(env_lib, 'reset', 'reset')
     run.spans.install(env_lib, 'step_batched', 'env_step')
     run.spans.install(wind_gp, 'refresh', 'gp_refresh')
-    run.spans.install(qrdqn_lib, 'select_action', 'policy')
+    policy.spans(run.spans)
     run.spans.install(learner_lib, 'learn', 'learn')
   capture.install_env(env_lib)
-  capture.install_q_values(qrdqn_lib)
-  capture.install_train(qrdqn_lib, replay_lib, chunk,
-                        config.qrdqn.target_update_period)
+  policy.install(capture, cfg, config, chunk)
 
   dec_w = decoder_weights(run.seed, dev)
-  decoder = _module_on(vae.Decoder, dec_w, dev)
+  decoder = module_on(vae.Decoder, dec_w, dev)
   field_fn = env_lib.make_field_fn('generative', decoder)
   env_params = _env_params(cfg)
   world = learner_lib.TRAIN_SEED_BASE + (run.seed % 2**30) * 2**12
@@ -380,8 +313,8 @@ def run_train(run: Run, faults=(), control=False):
   ts = learner_lib.train_state_from_envs(config, env_state, obs,
                                          seed=run.seed % 2**62,
                                          next_world_seed=world + n)
-  weights = qrdqn_weights(run.seed, _widths(cfg, obs.shape[1]), dev)
-  qrdqn_lib.load_params(ts.learner, state_dict_of(weights))
+  weights = policy.weights(run.seed, cfg, obs.shape[1], dev)
+  policy.load(ts, weights)
   del env_state, obs
 
   # Fills replay past can_sample and takes the first train steps, through
@@ -409,8 +342,9 @@ def run_train(run: Run, faults=(), control=False):
   run.ctx.update(window_s=window_s, calls=calls, envs=n,
                  call_s=_call_seconds(t_start, ends),
                  steps=calls * chunk, grad_steps=calls * chunk * grad,
-                 grad_steps_per_env_step=grad, batch=config.replay.batch_size,
-                 widths=_widths(cfg, ts.obs.shape[1]),
+                 grad_steps_per_env_step=grad,
+                 work=policy.work(cfg, ts.obs.shape[1],
+                                  config.replay.batch_size),
                  window_spans=run.spans.take() if run.spans else {})
   memory = torch.cuda.max_memory_allocated(dev) if dev.type == 'cuda' else 0
 
@@ -447,17 +381,12 @@ def run_train(run: Run, faults=(), control=False):
   reset_seeds = [seeds[i] for i in idx.tolist()]
   numbers, reference = check.env_numbers(cfg['env'], capture, reset_seeds,
                                          dec_w, dev)
-  q = cfg['qrdqn']
-  numbers.update(check.q_numbers(capture, weights, q['num_actions']))
-  numbers.update(check.learner_numbers(capture, weights, cfg))
+  numbers.update(policy.numbers(capture, weights, cfg))
   run.numbers = numbers
   if control:
     run.control = check.env_control(cfg['env'], capture, reset_seeds, dec_w,
                                     dev, reference)
-    run.control.update(check.q_numbers(capture, weights, q['num_actions'],
-                                       control=True))
-    run.control.update(check.learner_numbers(capture, weights, cfg,
-                                             control=True))
+    run.control.update(policy.numbers(capture, weights, cfg, control=True))
   rate = n * calls * chunk / window_s
   return {'train_env_steps_per_s': rate, 'setup_s': setup_s}, calls, failed, \
       memory

@@ -1,6 +1,8 @@
 """The eval window's counted float work over its time, as a share of the
 card's fp32 peak (TF32 is off in the port), in %: B2's observe and
-query a step, and for a network policy its forward over every env."""
+query a step, and the policy's work of one actor row over every env, as
+its module counts it (policies/<policy>.py: work, in ctx['work']; none
+for StationSeeker)."""
 
 from portbench import workcount
 
@@ -10,8 +12,7 @@ def read(ctx):
       not ctx.get('window_s')):
     return None
   per_step = workcount.b2_flops(ctx['envs'])
-  if ctx['policy'] == 'qrdqn':
-    per_step += ctx['envs'] * workcount.mlp_forward_flops(ctx['widths'])
+  per_step += ctx['envs'] * ctx['work']['actor_row']
   flops = per_step * ctx['steps']
   return 100.0 * flops / ctx['window_s'] / workcount.peaks()[
       'fp32_flops_per_s']

@@ -1,7 +1,7 @@
 """The training window's counted network work over its time, as a share
-of the card's fp32 peak, in %: each train step's online forward and
-backward and target forward over the batch, and the actor's forward over
-every env an env step."""
+of the card's fp32 peak, in %: each train step's work and the actor's
+work of one row over every env an env step, as the policy's module counts
+them (policies/<policy>.py: work, in ctx['work'])."""
 
 from portbench import workcount
 
@@ -10,9 +10,8 @@ def read(ctx):
   if (ctx['kind'] != 'train' or ctx.get('device') != 'cuda' or
       not ctx.get('window_s')):
     return None
-  forward = workcount.mlp_forward_flops(ctx['widths'])
-  flops = (ctx['grad_steps'] *
-           workcount.qrdqn_grad_step_flops(ctx['widths'], ctx['batch']) +
-           ctx['steps'] * ctx['envs'] * forward)
+  work = ctx['work']
+  flops = (ctx['grad_steps'] * work['train_step'] +
+           ctx['steps'] * ctx['envs'] * work['actor_row'])
   return 100.0 * flops / ctx['window_s'] / workcount.peaks()[
       'fp32_flops_per_s']

@@ -1,7 +1,9 @@
 """BENCHMARK.json and the files it names: every cell, configuration,
 traffic mix, limit file and per-layer metric loads by name; names and
-units keep to their characters; nothing under portbench/ imports JAX or
-the JAX package, and the reference imports nothing of the port."""
+units keep to their characters; every configuration's policy has its
+module under policies/, and the runners and the check know no policy;
+nothing under portbench/ imports JAX or the JAX package, and the
+reference imports nothing of the port."""
 
 import ast
 import json
@@ -12,6 +14,7 @@ import pytest
 
 from portbench import check
 from portbench import harness
+from portbench import policies
 
 BENCH = json.load(open(os.path.join(harness.ROOT, 'BENCHMARK.json')))
 NAME = re.compile(r'^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$')
@@ -78,8 +81,61 @@ METRICS = sorted(name[:-3] for name in os.listdir(os.path.join(harness.HERE,
 @pytest.mark.parametrize('metric', METRICS)
 def test_metric_reads_nothing_from_an_empty_run(metric):
   for kind in ('eval', 'train'):
-    assert harness.read_metric(metric, {'kind': kind,
-                                        'policy': 'qrdqn'}) is None
+    assert harness.read_metric(metric, {'kind': kind}) is None
+
+
+CONFIGS = sorted(n for n in os.listdir(os.path.join(harness.HERE, 'configs'))
+                 if n.endswith('.json'))
+POLICIES = sorted(n[:-3] for n in os.listdir(os.path.join(harness.HERE,
+                                                           'policies'))
+                  if n.endswith('.py') and n != '__init__.py')
+
+
+@pytest.mark.parametrize('config', CONFIGS)
+def test_config_policy_has_its_module(config):
+  with open(os.path.join(harness.HERE, 'configs', config)) as f:
+    policy = json.load(f)['policy']
+  assert policy in POLICIES
+  module = policies.load(policy)
+  for name in policies.FUNCTIONS:
+    assert callable(getattr(module, name, None)), (policy, name)
+
+
+def _words(node):
+  """The names and strings a node of a syntax tree spells."""
+  if isinstance(node, ast.Constant) and isinstance(node.value, str):
+    yield node.value
+  elif isinstance(node, ast.Name):
+    yield node.id
+  elif isinstance(node, ast.Attribute):
+    yield node.attr
+  elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+    yield node.name
+  elif isinstance(node, ast.arg):
+    yield node.arg
+  elif isinstance(node, ast.alias):
+    yield node.name
+    if node.asname:
+      yield node.asname
+
+
+@pytest.mark.parametrize('name', ['harness.py', 'check.py'])
+def test_runners_and_check_know_no_policy(name):
+  """What is a policy's sits in policies/<policy>.py: harness.py and
+  check.py import none of the port's agents and spell no policy's name."""
+  with open(os.path.join(harness.HERE, name)) as f:
+    tree = ast.parse(f.read())
+  for node in ast.walk(tree):
+    if isinstance(node, ast.ImportFrom) and node.module:
+      modules = [f'{node.module}.{a.name}' for a in node.names]
+    elif isinstance(node, ast.Import):
+      modules = [a.name for a in node.names]
+    else:
+      modules = []
+    for module in modules:
+      assert not module.startswith('ble_tpu_torch.agents'), (name, module)
+    for word in _words(node):
+      assert not any(p in word for p in POLICIES), (name, word)
 
 
 def _imports(path):
