@@ -126,9 +126,10 @@ def actor_select(config: R2d2Config, network: networks.LstmQuantileNetwork,
                  epsilon: float = 0.0):
   """One recurrent policy step over the (E, D) batch: (carry, (E,) int32
   epsilon-greedy actions)."""
-  carry, (q, _) = network(carry, obs)
-  return carry, qrdqn.epsilon_greedy(q, config.num_actions, generator,
-                                     epsilon)
+  with profiling.span('r2d2.select_action'):
+    carry, (q, _) = network(carry, obs)
+    return carry, qrdqn.epsilon_greedy(q, config.num_actions, generator,
+                                       epsilon)
 
 
 def sequence_loss(config: R2d2Config, network, target_network,
@@ -153,9 +154,12 @@ def sequence_loss(config: R2d2Config, network, target_network,
     carry0 = vec_to_carry(batch['start_state'].detach())
   else:
     carry0 = network.initial_state(obs.shape[0], obs.device)
-  q_online, logits_online = network.unroll(carry0, obs)[1]
+  with profiling.span('r2d2.unroll'):
+    q_online, logits_online = network.unroll(carry0, obs)[1]
+    with torch.no_grad():
+      logits_target = target_network.unroll(carry0, obs)[1][1]
+  profiling.count('r2d2.unroll_rows', 2 * obs.shape[0] * obs.shape[1])
   with torch.no_grad():
-    logits_target = target_network.unroll(carry0, obs)[1][1]
     # theta(s_t, a_t) for t in [0, L); the double-DQN target takes a* from
     # the ONLINE network at t+1 and its value from the target network.
     best = q_online[:, 1:].argmax(dim=-1)  # (B, L)

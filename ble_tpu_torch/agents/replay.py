@@ -398,6 +398,7 @@ def sample_sequence_from_draws(state: ReplayState, config: ReplayConfig,
   episode, finite and not after a terminal; env_idx, slot (the window's
   first slot), and start_state (B, S) when the ring stores actor states.
   """
+  profiling.count('replay.sequence_samples')
   t_ring = config.ring_len
   dev = state.obs.device
   env_idx = env_idx.to(device=dev, dtype=torch.int64)

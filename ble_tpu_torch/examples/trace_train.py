@@ -1,6 +1,6 @@
-"""The port's tracer over a QR-DQN training run: what set-up and the train
-step spend their time on, how long the learner waits, and where the
-device idles.
+"""The port's tracer over a QR-DQN (or, with --agent r2d2, an R2D2)
+training run: what set-up and the train step spend their time on, how
+long the learner waits, and where the device idles.
 
   python -m ble_tpu_torch.examples.trace_train --num_envs 1024 --steps 16 \\
       --profile /tmp/trace --cost 8
@@ -9,6 +9,8 @@ device idles.
       --set qrdqn.hidden_units=32 --set qrdqn.num_atoms=11 \\
       --set qrdqn.min_replay_history=8 --set replay.ring_len=64 \\
       --set replay.batch_size=8
+  python -m ble_tpu_torch.examples.trace_train --agent r2d2 \\
+      --num_envs 1024 --steps 16
 
 The tracer (utils/profiling.py) is on from before the reset. Set-up is the
 reset, the learner's init, and chunks of 8 env steps (the slab cache's
@@ -27,7 +29,8 @@ between device synchronisations. Prints one JSON object:
   setup_s          env.reset, reset.draws, learner.init and the set-up
                    chunks (learner.chunk), and the process's time to the
                    window;
-  train_step_ms    replay.sample, qrdqn.loss, optimizer.backward, Adam
+  train_step_ms    replay.sample, the loss (qrdqn.loss, or r2d2.loss
+                   with both unrolls), optimizer.backward, Adam
                    (optimizer.step + optimizer.target_sync), the train
                    graph's replay (qrdqn.graph_step, where it ran) and
                    learner.learn's self time, a train step; `covered`,
@@ -124,8 +127,8 @@ def train_step_split(by_name: dict, env_steps: int) -> dict:
   if learn is None:
     return {}
   steps = by_name['replay.sample']['calls']
-  parts = {'replay.sample': wall('replay.sample'),
-           'qrdqn.loss': wall('qrdqn.loss'),
+  loss = 'r2d2.loss' if 'r2d2.loss' in by_name else 'qrdqn.loss'
+  parts = {'replay.sample': wall('replay.sample'), loss: wall(loss),
            'optimizer.backward': wall('optimizer.backward'),
            'adam': wall('optimizer.step') + wall('optimizer.target_sync')}
   if 'qrdqn.graph_step' in by_name:
@@ -154,6 +157,7 @@ def _table(taken: dict) -> dict:
 def main(argv=None) -> dict:
   start = time.perf_counter()
   p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+  p.add_argument('--agent', choices=('quantile', 'r2d2'), default='quantile')
   p.add_argument('--num_envs', type=int, default=1024)
   p.add_argument('--steps', type=int, default=16)
   p.add_argument('--wind', choices=('generative', 'static'),
@@ -169,7 +173,7 @@ def main(argv=None) -> dict:
   args = p.parse_args(argv)
   device = resolve_device(args.device)
   config = config_lib.apply_overrides(
-      learner_lib.TrainConfig(agent='quantile', num_envs=args.num_envs),
+      learner_lib.TrainConfig(agent=args.agent, num_envs=args.num_envs),
       args.set)
   params = env_lib.EnvParams(field_cache=True)
   chunk = params.field_cache_every
@@ -201,7 +205,8 @@ def main(argv=None) -> dict:
 
   sb = setup['by_name']
   report = {
-      'num_envs': config.num_envs, 'steps': args.steps,
+      'agent': config.agent, 'num_envs': config.num_envs,
+      'steps': args.steps,
       'device': device.type, 'wind': args.wind,
       'setup': _table(setup), 'window': _table(window),
       'setup_s': {name: sb.get(name, {}).get('wall_s') for name in (

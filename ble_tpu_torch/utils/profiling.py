@@ -7,7 +7,8 @@ The spans sit inside the port's functions:
 
   learner.chunk, learner.env_step, learner.learn*, learner.init
                       train/learner.py
-  qrdqn.select_action, qrdqn.loss, qrdqn.graph_step, dqn.loss, r2d2.loss
+  qrdqn.select_action, qrdqn.loss, qrdqn.graph_step, dqn.loss,
+  r2d2.select_action, r2d2.loss with r2d2.unroll
                       agents/qrdqn.py, dqn.py, r2d2.py
   optimizer.backward, optimizer.step, optimizer.target_sync
                       agents/qrdqn.py:optimizer_step (every agent's)
@@ -24,7 +25,10 @@ The spans sit inside the port's functions:
 and the counter `kernels_built` counts nvcc builds; `replay.graph_captures`,
 `replay.graph_replays`, `qrdqn.graph_captures`, `qrdqn.graph_replays` and
 `qrdqn.graph_eager` (with `qrdqn.graph_eager.<reason>`) count the CUDA
-graphs of the train step (agents/replay.py, agents/qrdqn.py). `take()`
+graphs of the train step (agents/replay.py, agents/qrdqn.py);
+`r2d2.unroll_rows` adds B x (L + 1) for each network's unroll over a
+batch of windows, and `replay.sequence_samples` counts the sequence
+samples (agents/r2d2.py, agents/replay.py). `take()`
 also reports the kernel wrappers' launch counters (`launch.launches` of
 ops/physics.py, gp_window.py, gp_observe.py, gp_query.py) by reading
 them.

@@ -282,3 +282,36 @@ def test_chrome_trace_gaps_go_to_the_innermost_span():
   assert list(out['idle_gaps']) == ['optimizer.backward', 'qrdqn.loss']
   assert out['launches'] == {'qrdqn.loss': 1, 'optimizer.backward': 1,
                              'none': 1}
+
+
+def test_trace_train_reads_r2d2_spans_and_counters_on_cpu(capsys):
+  """One traced R2D2 env step at small widths: the actor's span, one
+  sample, loss and unroll a train step, and the counters the learner
+  knows on the host (no sync): 2 x B x (L + 1) unrolled rows and one
+  sequence sample a train step."""
+  batch, seq_len = 8, 6
+  report = trace_train.main([
+      '--agent', 'r2d2', '--device', 'cpu', '--wind', 'static',
+      '--num_envs', '4', '--steps', '1', '--set', 'r2d2.hidden_units=32',
+      '--set', 'r2d2.lstm_units=8', '--set', 'r2d2.num_atoms=5',
+      '--set', f'r2d2.seq_len={seq_len}', '--set', 'r2d2.burn_in=2',
+      '--set', 'r2d2.min_replay_history=0', '--set', 'samples_per_insert=16',
+      '--set', 'replay.ring_len=64', '--set', f'replay.batch_size={batch}'])
+  assert json.loads(capsys.readouterr().out.splitlines()[-1]) == report
+  assert report['agent'] == 'r2d2'
+  window = report['window']
+  by_name, steps = window['by_name'], report['train_steps']
+  assert steps == 2  # 4 envs x 16 / (8 windows x 4 trainable steps).
+  assert by_name['learner.env_step']['calls'] == 1
+  assert by_name['r2d2.select_action']['calls'] == 1
+  for name in ('replay.sample', 'r2d2.loss', 'r2d2.unroll',
+               'optimizer.backward', 'optimizer.step'):
+    assert by_name[name]['calls'] == steps, name
+  assert 'qrdqn.loss' not in by_name
+  assert window['counters'] == {
+      'r2d2.unroll_rows': steps * 2 * batch * (seq_len + 1),
+      'replay.sequence_samples': steps}
+  assert set(report['train_step_ms']) == {
+      'replay.sample', 'r2d2.loss', 'optimizer.backward', 'adam',
+      'learner.learn self', 'covered'}
+  assert 0.5 < report['train_step_ms']['covered'] <= 1.0
